@@ -27,15 +27,40 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    device's busy time per step and its kernels by time (torch.profiler),
    and the peak device memory.
 
+The training slice (cfg/bird.yml: GF_DIM=DF_DIM=32, 200 classes,
+RUNTIME.PALLAS_AFFINE=true, RUNTIME.PALLAS_DAMSM=true), run before the
+sampling phases:
+
+8. the affine backward kernel, through the autograd Function, against
+   autograd of the plain version at the 14 sites of one generator forward
+   (B=32, float32 and bf16) and ragged shapes: all six gradients;
+9. the DAMSM forward, dR and dW kernels against the plain version and its
+   autograd at (Bi, Bt, S, L, D) = (32, 32, 289, 20, 256), (5, 3, 37, 7, 64)
+   and (4, 4, 289, 20, 256) with a class mask; dW exactly 0 at padded words;
+10. the float32 train step on cuda (TF32 off) against the same step on the
+   CPU, full width, B=4, same weights, batch and noise: metrics, updated
+   parameters and the kernel launches per step (14 / 14 / 1 / 1 / 0);
+11. the bf16 train step at B=32: a few steps with finite metrics and the
+   same launches per step;
+12. times of the backward and DAMSM kernels at the step's shapes (L2
+   flushed) beside their bounds and plain versions; the bf16 step at B=32;
+13. that step's device busy time, idle share, top device operations and
+   peak memory (torch.profiler).
+
 The last lines are one JSON ``kernels`` line, the card's name and power
 limit as nvidia-smi prints them, and ``{"ok": true, "device": {...}}``;
-the JSON lines before them hold every launch's times, the step's times
-and the breakdown. Imports nothing of JAX or of the JAX package.
+the JSON lines before them hold the steps' times and the breakdowns'
+summaries. Every launch's times, the profiles' operation lists and the
+checks' errors go to the JSON file that ``--out`` names
+(``build/chip_smoke.json`` by default). Imports nothing
+of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -50,6 +75,7 @@ N_WORDS = 5450  # the CUB caption vocabulary size (AttnGAN captions.pickle)
 SEED = 1234
 REPS = 25
 WARMUP = 5
+SPIN_CYCLES = 2_000_000  # about 1 ms at the H100's clock
 
 
 def fail(msg: str) -> None:
@@ -68,6 +94,36 @@ def nvidia_smi() -> str:
     if out.returncode != 0:
         fail(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def kernel_counters():
+    """Each kernel's wrapper, whose ``launches`` counts its launches."""
+    from eegan_tpu_torch.ops import affine, damsm
+
+    return {"affine_mask_relu": affine.affine_mask_relu,
+            "affine_mask_relu_backward": affine.affine_mask_relu_backward,
+            "words_similarity_forward": damsm.words_similarity_forward,
+            "words_similarity_backward_dr": damsm.words_similarity_backward_dr,
+            "words_similarity_backward_dw":
+                damsm.words_similarity_backward_dw}
+
+
+def read_counts():
+    return {k: fn.launches for k, fn in kernel_counters().items()}
+
+
+def set_counts(counts):
+    for k, fn in kernel_counters().items():
+        fn.launches = counts[k]
+
+
+def launches_of(**nonzero):
+    """The counts of a run that launched only the named kernels, so often."""
+    return {k: nonzero.get(k, 0) for k in kernel_counters()}
+
+
+def zero_counts():
+    set_counts(launches_of())
 
 
 def affine_launch_shapes(ngf: int):
@@ -112,7 +168,10 @@ def affine_bytes(ops, out_dtype, up) -> int:
 
 def time_cuda(fn, flush) -> float:
     """Median ms of ``fn()`` over REPS launches, each timed by CUDA events
-    with the L2 cache flushed before it."""
+    with the L2 cache flushed before it. A spin kernel of about 1 ms runs
+    between the flush and the start event: the host enqueues ``fn`` while
+    the device spins, so the time is the device's and not the host's
+    launch latency."""
     import torch
 
     for _ in range(WARMUP):
@@ -120,6 +179,7 @@ def time_cuda(fn, flush) -> float:
     times = []
     for _ in range(REPS):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -130,7 +190,7 @@ def time_cuda(fn, flush) -> float:
     return statistics.median(times)
 
 
-def time_host(fn) -> float:
+def time_host(fn, reps: int = REPS) -> float:
     """Median ms of ``fn()`` by the host clock, synchronised, after
     warm-up (for whole steps)."""
     import torch
@@ -139,7 +199,7 @@ def time_host(fn) -> float:
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -228,7 +288,6 @@ def phase_slice(ngf_expected: int):
     import torch
 
     from eegan_tpu_torch.models.generator import AffineSSA
-    from eegan_tpu_torch.ops.affine import affine_mask_relu
     from eegan_tpu_torch.training.steps import make_sample_step
 
     torch.backends.cudnn.allow_tf32 = False
@@ -245,25 +304,26 @@ def phase_slice(ngf_expected: int):
         for m in gpu.generator.modules() if isinstance(m, AffineSSA)]
     step = make_sample_step(config, gpu)
 
-    affine_mask_relu.launches = 0
+    zero_counts()
     imgs = step(*inputs)
     torch.cuda.synchronize()
-    launches = affine_mask_relu.launches
+    counts = read_counts()
+    launches = counts["affine_mask_relu"]
     for h in hooks:
         h.remove()
-    if launches != 14:
-        fail(f"the float32 sampling step launched affine_mask_relu "
-             f"{launches} times, expected 14")
+    if counts != launches_of(affine_mask_relu=14):
+        fail(f"the float32 sampling step launched {counts}, expected "
+             f"affine_mask_relu 14 times and nothing else")
     want_shapes = [((C, h, w), up) for _, C, h, w, up
                    in affine_launch_shapes(config.GAN.GF_DIM)]
     if sorted(seen) != sorted(want_shapes):
         fail(f"affine shapes on the path {seen} != {want_shapes}")
 
     cpu = slice_models(config, "cpu")
-    affine_mask_relu.launches = 0
+    zero_counts()
     imgs_cpu = make_sample_step(config, cpu)(*inputs)
-    if affine_mask_relu.launches != 0:
-        fail("the CPU run launched the CUDA kernel")
+    if read_counts() != launches_of():
+        fail("the CPU run launched a CUDA kernel")
     errs = []
     for scale, a, b in zip((64, 128, 256), imgs, imgs_cpu):
         if tuple(a.shape) != (BATCH, scale, scale, 3) or a.shape != b.shape:
@@ -277,13 +337,14 @@ def phase_slice(ngf_expected: int):
     config_bf16 = slice_config("bfloat16")
     gpu_bf16 = slice_models(config_bf16, "cuda")
     step_bf16 = make_sample_step(config_bf16, gpu_bf16)
-    affine_mask_relu.launches = 0
+    zero_counts()
     imgs_bf16 = step_bf16(*inputs)
     torch.cuda.synchronize()
-    launches_bf16 = affine_mask_relu.launches
-    if launches_bf16 != 14:
-        fail(f"the bfloat16 sampling step launched the kernel "
-             f"{launches_bf16} times, expected 14")
+    counts = read_counts()
+    launches_bf16 = counts["affine_mask_relu"]
+    if counts != launches_of(affine_mask_relu=14):
+        fail(f"the bfloat16 sampling step launched {counts}, expected "
+             f"affine_mask_relu 14 times and nothing else")
     for scale, img in zip((64, 128, 256), imgs_bf16):
         if tuple(img.shape) != (BATCH, scale, scale, 3):
             fail(f"bf16 img{scale} shape {tuple(img.shape)}")
@@ -350,7 +411,7 @@ def phase_times(ngf: int, step_bf16, models_bf16, inputs):
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
     rows = []
-    counted = affine_mask_relu.launches
+    counted = read_counts()
     for site, C, h, w, up in affine_launch_shapes(ngf):
         ops = affine_operands(BATCH, C, h, w, up, dt, gen)
         ms = time_cuda(lambda: affine_mask_relu(*ops, up, 1e-5, dt), flush)
@@ -360,7 +421,7 @@ def phase_times(ngf: int, step_bf16, models_bf16, inputs):
         rows.append(dict(site=site, shape=[BATCH, C, h, w], up=up,
                          dtype="bfloat16", ms=ms, plain_ms=plain_ms,
                          bound_ms=bound_ms))
-    affine_mask_relu.launches = counted  # timing launches are not the path's
+    set_counts(counted)  # timing launches are not the path's
 
     pallas_mods = [m for m in models_bf16.generator.modules()
                    if isinstance(m, AffineSSA)]
@@ -374,7 +435,7 @@ def phase_times(ngf: int, step_bf16, models_bf16, inputs):
         set_pallas(arm == "kernel")
         step_ms[arm].append(time_host(lambda: step_bf16(*inputs)))
     set_pallas(True)
-    affine_mask_relu.launches = counted
+    set_counts(counted)
     step = {arm: statistics.mean(v) for arm, v in step_ms.items()}
     log(f"phase 6 ok: kernel {sum(r['ms'] for r in rows)} ms per forward "
         f"(bound {sum(r['bound_ms'] for r in rows)} ms); sampling step bf16 "
@@ -388,7 +449,6 @@ def phase_breakdown(step_bf16, models_bf16, inputs, step_ms: float):
     and from a torch.profiler trace of a few steps the device's busy time
     per step and its kernels by time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     spans = {}
     hooks = []
@@ -416,12 +476,30 @@ def phase_breakdown(step_bf16, models_bf16, inputs, step_ms: float):
                  for name, evs in spans.items()}
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
 
-    steps = 5
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    result = dict(module_device_span_ms=module_ms, peak_memory_mib=peak_mib,
+                  **profile_steps(lambda: step_bf16(*inputs), 5, step_ms))
+    busy_ms = result["device_busy_ms_per_step"]
+    n_ops = result["device_ops_per_step"]
+    log(f"phase 7 ok: bf16 step module spans {module_ms} ms; device busy "
+        f"{busy_ms} ms of a {step_ms} ms step "
+        f"({n_ops} device ops per step); peak {peak_mib} MiB")
+    return result
+
+
+def profile_steps(run_step, steps: int, step_ms: float):
+    """torch.profiler over ``steps`` calls of ``run_step``: the device's
+    busy time per step (union of its operations' intervals), its idle
+    share against the untraced ``step_ms``, its operations by time, and
+    the host operations (with their input shapes) whose launches took the
+    most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            step_bf16(*inputs)
+            run_step()
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3 / steps
     device = [e for e in prof.events()
@@ -439,8 +517,9 @@ def phase_breakdown(step_bf16, models_bf16, inputs, step_ms: float):
         n_us[1] += e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     busy_ms = busy_us / 1e3 / steps if device else None
-    result = dict(
-        module_device_span_ms=module_ms, peak_memory_mib=peak_mib,
+    by_shape = sorted(prof.key_averages(group_by_input_shape=True),
+                      key=lambda e: -e.self_device_time_total)[:12]
+    return dict(
         profiled_steps=steps, traced_step_ms=traced_ms,
         device_busy_ms_per_step=busy_ms,
         device_ops_per_step=len(device) / steps,
@@ -448,14 +527,462 @@ def phase_breakdown(step_bf16, models_bf16, inputs, step_ms: float):
                                      else 1.0 - busy_ms / step_ms),
         top_device_ops=[dict(name=n[:96], per_step=c / steps,
                              ms_per_step=us / 1e3 / steps)
-                        for n, (c, us) in top])
-    log(f"phase 7 ok: bf16 step module spans {module_ms} ms; device busy "
-        f"{busy_ms} ms of a {step_ms} ms step "
-        f"({len(device) / steps} device ops per step); peak {peak_mib} MiB")
+                        for n, (c, us) in top],
+        top_host_ops_by_device_time=[
+            dict(name=e.key, input_shapes=str(e.input_shapes)[:160],
+                 per_step=e.count / steps,
+                 device_ms_per_step=e.self_device_time_total / 1e3 / steps)
+            for e in by_shape])
+
+# ---------------------------------------------------------------------------
+# The training slice: kernels 2-5 and the train step (cfg/bird.yml)
+# ---------------------------------------------------------------------------
+
+FP32_FLOP_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
+TRAIN_BATCH = 32  # cfg/bird.yml TRAIN.BATCH_SIZE
+PARITY_BATCH = 4  # the float32 cuda-vs-CPU step
+BF16_STEPS = 3
+DAMSM_SHAPES = ((32, 32, 289, 20, 256), (5, 3, 37, 7, 64),
+                (4, 4, 289, 20, 256))  # (Bi, Bt, S, L, D)
+
+
+def bird_config(dtype: str):
+    from eegan_tpu_torch.config import apply_overrides, fresh_config
+
+    config = fresh_config(os.path.join(ROOT, "cfg", "bird.yml"))
+    apply_overrides(config, ["RUNTIME.PALLAS_AFFINE=true",
+                             "RUNTIME.PALLAS_DAMSM=true",
+                             f"RUNTIME.COMPUTE_DTYPE={dtype}"])
+    return config
+
+
+def affine_grads(fn, ops, up, out_dtype, dy):
+    """(dx, dmean, dvar, dgamma, dbeta, dmask) of sum(fn(ops) * dy)."""
+    import torch
+
+    leaves = [t.detach().requires_grad_(True) for t in ops]
+    return torch.autograd.grad(fn(*leaves, up, 1e-5, out_dtype), leaves, dy)
+
+
+def phase_affine_backward(ngf: int):
+    """(a) kernel 2, through the autograd Function, against autograd of
+    the plain version: the 14 sites of one generator forward at B=32 in
+    float32 and bf16, and ragged shapes."""
+    import torch
+
+    from eegan_tpu_torch.ops.affine import (
+        affine_mask_relu,
+        affine_mask_relu_reference,
+    )
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    cases = [(site, TRAIN_BATCH, C, h, w, up, dt, dt)
+             for site, C, h, w, up in affine_launch_shapes(ngf)
+             for dt in (f32, bf16)]
+    cases += [("ragged", B, C, h, w, up, dt_in, dt_out)
+              for B, C, h, w, up in ((3, 40, 5, 7, False), (3, 40, 5, 7, True),
+                                     (2, 37, 3, 5, True))
+              for dt_in in (f32, bf16) for dt_out in (f32, bf16)]
+    names = ("dx", "dmean", "dvar", "dgamma", "dbeta", "dmask")
+    worst = {}
+    saved = read_counts()
+    for site, B, C, h, w, up, dt_in, dt_out in cases:
+        ops = affine_operands(B, C, h, w, up, dt_in, gen)
+        H, W = (2 * h, 2 * w) if up else (h, w)
+        dy = torch.randn((B, C, H, W), generator=gen, device="cuda").to(
+            dt_out).contiguous(memory_format=torch.channels_last)
+        got = affine_grads(affine_mask_relu, ops, up, dt_out, dy)
+        want = affine_grads(affine_mask_relu_reference, ops, up, dt_out, dy)
+        torch.cuda.synchronize()
+        what = f"affine bwd {site} {(B, C, h, w)} up={up} {dt_in}->{dt_out}"
+        for name, g, wv, t in zip(names, got, want, ops):
+            if g.shape != t.shape or g.dtype != t.dtype:
+                fail(f"{what}: {name} {tuple(g.shape)} {g.dtype}, input "
+                     f"{tuple(t.shape)} {t.dtype}")
+            err = (g.float() - wv.float()).abs()
+            scale = float(wv.float().abs().max())
+            if g.dtype == bf16:
+                tol = 8e-3 * wv.float().abs() + 1e-4 * scale + 1e-6
+            elif name == "dx":
+                tol = 1e-5 + 1e-5 * wv.float().abs()
+            else:  # sums over channels or over up to B*H*W elements
+                tol = 1e-4 * scale + 1e-6
+            if not bool((err <= tol).all()):
+                fail(f"{what}: {name} max abs err {float(err.max())} "
+                     f"(scale {scale})")
+            key = f"{name}_{str(g.dtype).split('.')[-1]}"
+            worst[key] = max(worst.get(key, 0.0), float(err.max()))
+    set_counts(saved)  # comparison launches are not the path's
+    log(f"phase 8 ok: affine backward matches autograd of its plain version "
+        f"in {len(cases)} cases; max abs err {worst}")
+    return worst
+
+
+def damsm_operands(Bi, Bt, S, L, D, gen):
+    import torch
+
+    regions = torch.randn((Bi, S, D), generator=gen, device="cuda")
+    words = torch.randn((Bt, L, D), generator=gen, device="cuda")
+    lens = torch.randint(min(3, L), L + 1, (Bt,), generator=gen,
+                         device="cuda")
+    words = words * (torch.arange(L, device="cuda")[None, :, None]
+                     < lens[:, None, None])
+    cls = torch.randint(0, 2, (Bt,), generator=gen, device="cuda")
+    return regions, words, lens, cls
+
+
+def phase_damsm_kernels():
+    """(b) kernels 3-5 against the plain version and its autograd: each
+    kernel directly (a random upstream dsim) at every shape, and the words
+    loss through the autograd Function (with a class mask on the last)."""
+    import torch
+
+    from eegan_tpu_torch.losses.damsm import words_loss
+    from eegan_tpu_torch.ops.damsm import (
+        words_loss_fused,
+        words_similarity_backward_dr,
+        words_similarity_backward_dw,
+        words_similarity_forward,
+        words_similarity_reference,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    saved = read_counts()
+    worst = {"sims": 0.0, "d_regions": 0.0, "d_words": 0.0}
+
+    def check_grads(what, got, want, lens, L):
+        for name, g, wv in zip(("d_regions", "d_words"), got, want):
+            err = (g - wv).abs()
+            if g.shape != wv.shape or not bool(
+                    (err <= 2e-4 + 2e-3 * wv.abs()).all()):
+                fail(f"{what}: {name} max abs err {float(err.max())}")
+            worst[name] = max(worst[name], float(err.max()))
+        pad = torch.arange(L, device="cuda")[None, :] >= lens[:, None]
+        if not bool((got[1][pad] == 0).all()):
+            fail(f"{what}: dW not exactly zero at padded words")
+
+    for (Bi, Bt, S, L, D), use_cls in zip(DAMSM_SHAPES,
+                                          (False, False, True)):
+        regions, words, lens, cls = damsm_operands(Bi, Bt, S, L, D, gen)
+        what = f"damsm {(Bi, Bt, S, L, D)}"
+        got = words_similarity_forward(regions, words, lens)
+        r = regions.detach().requires_grad_(True)
+        w = words.detach().requires_grad_(True)
+        want = words_similarity_reference(r, w, lens)
+        torch.cuda.synchronize()
+        err = (got - want.detach()).abs()
+        if got.shape != (Bi, Bt) or not bool(
+                (err <= 1e-3 + 1e-4 * want.detach().abs()).all()):
+            fail(f"{what}: sims max abs err {float(err.max())}")
+        worst["sims"] = max(worst["sims"], float(err.max()))
+
+        dsim = torch.randn((Bi, Bt), generator=gen, device="cuda") / Bi
+        got = (words_similarity_backward_dr(regions, words, lens, dsim),
+               words_similarity_backward_dw(regions, words, lens, dsim))
+        check_grads(what, got, torch.autograd.grad(want, (r, w), dsim),
+                    lens, L)
+        if Bi != Bt:
+            continue  # the losses contrast a square grid
+        class_ids = cls if use_cls else None
+        grads = []
+        for loss_fn in (words_loss_fused, words_loss):
+            r = regions.detach().requires_grad_(True)
+            w = words.detach().requires_grad_(True)
+            l0, l1 = loss_fn(r, w, lens, class_ids, 5.0, 5.0, 10.0)
+            grads.append(torch.autograd.grad(l0 + 0.7 * l1, (r, w)))
+        torch.cuda.synchronize()
+        check_grads(f"{what} words loss class_mask={use_cls}", *grads, lens,
+                    L)
+    set_counts(saved)
+    log(f"phase 9 ok: DAMSM kernels match the plain version at "
+        f"{DAMSM_SHAPES}; max abs err {worst}; padded words get dW == 0")
+    return worst
+
+
+def train_models(config, device, state_dicts=None):
+    """The bird.yml bundle on ``device``: random weights from the seed, or
+    the given state dicts (module name -> state dict)."""
+    from eegan_tpu_torch.models.factory import build_models, randomize_
+
+    models = build_models(config, N_WORDS, device)
+    mods = {"generator": models.generator,
+            "attr_enhance": models.attr_enhance,
+            "text_encoder": models.text_encoder,
+            "image_encoder": models.image_encoder,
+            **{f"disc_{i}": d for i, d in enumerate(models.discriminators)}}
+    for i, (name, m) in enumerate(mods.items()):
+        if state_dicts is None:
+            randomize_(m, SEED + 100 + i)
+        else:
+            m.load_state_dict(state_dicts[name])
+    return models, mods
+
+
+def train_inputs(config, batch_size, seed):
+    import numpy as np
+
+    from eegan_tpu_torch.data.synthetic import synthetic_batch
+
+    batch = synthetic_batch(config, batch_size, seed=seed, n_words=N_WORDS)
+    noise = np.random.RandomState(seed).randn(
+        batch_size, config.GAN.Z_DIM).astype(np.float32)
+    return batch, noise
+
+
+def phase_train_parity():
+    """(c) the float32 train step on cuda against the same step on the CPU
+    (TF32 off), full width, B=4, same weights, batch and noise; kernel
+    launches per step."""
+    import torch
+
+    from eegan_tpu_torch.training.state import create_train_state
+    from eegan_tpu_torch.training.steps import make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    config = bird_config("float32")
+    cpu, cpu_mods = train_models(config, "cpu")
+    sds = {k: {n: v.clone() for n, v in m.state_dict().items()}
+           for k, m in cpu_mods.items()}
+    gpu, gpu_mods = train_models(config, "cuda", sds)
+    batch, noise = train_inputs(config, PARITY_BATCH, SEED)
+
+    state, frozen = create_train_state(config, gpu)
+    step = make_train_step(config, gpu)
+    zero_counts()
+    state, metrics = step(state, frozen, batch, noise)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    want_launches = launches_of(affine_mask_relu=14,
+                                affine_mask_relu_backward=14,
+                                words_similarity_forward=1,
+                                words_similarity_backward_dr=1)
+    if launches != want_launches:
+        fail(f"float32 train step launches {launches}, expected "
+             f"{want_launches}")
+
+    t0 = time.perf_counter()
+    cstate, cfrozen = create_train_state(config, cpu)
+    cstate, cmetrics = make_train_step(config, cpu)(cstate, cfrozen, batch,
+                                                    noise)
+    cpu_s = time.perf_counter() - t0
+    if read_counts() != launches:
+        fail("the CPU train step launched a CUDA kernel")
+
+    metric_err = {}
+    for k, want in cmetrics.items():
+        got, want = float(metrics[k]), float(want)
+        metric_err[k] = abs(got - want)
+        if not metric_err[k] <= 1e-6 + 1e-3 * abs(want):
+            fail(f"train step metric {k}: cuda {got} vs cpu {want}; all "
+                 f"{ {m: (float(metrics[m]), float(v)) for m, v in cmetrics.items()} }")
+    # Parameters after the step. Adam's first update moves an entry by
+    # about lr * sign(g), so an entry whose gradient is near 0 may land up
+    # to 2 lr away. A discriminator takes a second Adam update (MAGP), whose
+    # size is at most lr * sqrt(1 + B2) (v-hat holds at least g2^2 / (1 + B2)),
+    # so its entries may land up to 2 lr (1 + sqrt(1 + B2)) away. Besides,
+    # at most 1% of the entries may differ by more than lr / 100. Running
+    # stats (a forward only) within 1e-4.
+    param_err, bad = {}, []
+    tr = config.TRAIN
+    for name in ("generator", "attr_enhance", "disc_0", "disc_1", "disc_2"):
+        if name.startswith("disc"):
+            lr = tr.DISCRIMINATOR_LR
+            bar = 2 * lr * (1 + math.sqrt(1 + tr.B2)) + 1e-6
+        else:
+            lr = tr.GENERATOR_LR
+            bar = 2 * lr + 1e-6
+        got_sd, want_sd = gpu_mods[name].state_dict(), \
+            cpu_mods[name].state_dict()
+        n = n_off = 0
+        worst = worst_stat = 0.0
+        for k, want in want_sd.items():
+            if k.endswith("num_batches_tracked"):
+                continue
+            err = (got_sd[k].cpu() - want).abs()
+            if "running_" in k:
+                worst_stat = max(worst_stat, float(err.max()))
+                continue
+            n += err.numel()
+            n_off += int((err > lr / 100).sum())
+            if float(err.max()) > worst:
+                worst, worst_key = float(err.max()), k
+        param_err[name] = dict(max_abs_err=worst, worst=worst_key,
+                               bar=bar, off_lr100=n_off, n=n,
+                               running_stats_max_abs_err=worst_stat)
+        if worst > bar or n_off > 0.01 * n or worst_stat > 1e-4:
+            bad.append(name)
+    if bad:
+        fail(f"train step params cuda vs cpu out of bounds in {bad}: "
+             f"{param_err}")
+    log(f"phase 10 ok: float32 train step (bird.yml, B={PARITY_BATCH}) on "
+        f"cuda matches the CPU step: max metric err "
+        f"{max(metric_err.values())}, params {param_err}; launches "
+        f"{launches}; CPU step {cpu_s:.1f} s")
+    return dict(launches=launches, metric_max_abs_err=metric_err,
+                params=param_err, cpu_step_s=cpu_s,
+                errG_total=float(metrics["errG/total"]))
+
+
+def phase_train_bf16():
+    """(d) the bf16 train step at B=32, full width: a few steps with finite
+    metrics and the path's launches per step."""
+    import torch
+
+    from eegan_tpu_torch.training.state import create_train_state
+    from eegan_tpu_torch.training.steps import make_train_step
+
+    config = bird_config("bfloat16")
+    models, _ = train_models(config, "cuda")
+    state, frozen = create_train_state(config, models)
+    step = make_train_step(config, models)
+    batch, noise = train_inputs(config, TRAIN_BATCH, SEED + 1)
+    dev_batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    for k in ("cap_lens", "unpair_cap_lens", "attr_lens"):
+        dev_batch[k] = torch.from_numpy(batch[k])  # host: the packed RNN
+    noise = torch.from_numpy(noise).cuda()
+    per_step, history = [], []
+    for _ in range(BF16_STEPS):
+        zero_counts()
+        state, metrics = step(state, frozen, dev_batch, noise)
+        torch.cuda.synchronize()
+        per_step.append(read_counts())
+        values = {k: float(v) for k, v in metrics.items()}
+        bad = [k for k, v in values.items() if not math.isfinite(v)]
+        if bad:
+            fail(f"bf16 train step: non-finite metrics {bad}")
+        history.append(values)
+    want = launches_of(affine_mask_relu=14, affine_mask_relu_backward=14,
+                       words_similarity_forward=1,
+                       words_similarity_backward_dr=1)
+    if any(c != want for c in per_step):
+        fail(f"bf16 train step launches per step {per_step}, expected "
+             f"{want}")
+    log(f"phase 11 ok: bf16 train step bird.yml B={TRAIN_BATCH}: "
+        f"{BF16_STEPS} steps, finite metrics (errG/total "
+        f"{[h['errG/total'] for h in history]}), launches per step {want}")
+    return dict(launches_per_step=want, metrics=history), \
+        (step, state, frozen, dev_batch, noise)
+
+
+def affine_bwd_bytes(ops, dy) -> int:
+    """The backward reads the six inputs and dy once and writes one
+    gradient of each input's size and dtype."""
+    return (2 * sum(t.numel() * t.element_size() for t in ops)
+            + dy.numel() * dy.element_size())
+
+
+def phase_train_times(ngf: int, train):
+    """(e) kernels 2-5 at the train step's shapes (L2 flushed) beside their
+    bounds and plain versions, and the bf16 train step at B=32."""
+    import torch
+
+    from eegan_tpu_torch.ops import damsm
+    from eegan_tpu_torch.ops.affine import (
+        affine_mask_relu_backward,
+        affine_mask_relu_reference,
+    )
+
+    dt = torch.bfloat16
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    saved = read_counts()
+    rows = []
+    for site, C, h, w, up in affine_launch_shapes(ngf):
+        ops = affine_operands(TRAIN_BATCH, C, h, w, up, dt, gen)
+        H, W = (2 * h, 2 * w) if up else (h, w)
+        dy = torch.randn((TRAIN_BATCH, C, H, W), generator=gen,
+                         device="cuda").to(dt).contiguous(
+                             memory_format=torch.channels_last)
+        ms = time_cuda(lambda: affine_mask_relu_backward(*ops, dy, up, 1e-5),
+                       flush)
+        leaves = [t.detach().requires_grad_(True) for t in ops]
+        out = affine_mask_relu_reference(*leaves, up, 1e-5, dt)
+        plain_ms = time_cuda(lambda: torch.autograd.grad(
+            out, leaves, dy, retain_graph=True), flush)
+        rows.append(dict(site=site, shape=[TRAIN_BATCH, C, h, w], up=up,
+                         dtype="bfloat16", ms=ms, plain_ms=plain_ms,
+                         bound_ms=affine_bwd_bytes(ops, dy)
+                         / HBM_BYTES_PER_S * 1e3))
+        del out, leaves
+
+    Bi, Bt, S, L, D = DAMSM_SHAPES[0]
+    regions, words, lens, _ = damsm_operands(Bi, Bt, S, L, D, gen)
+    dsim = torch.randn((Bi, Bt), generator=gen, device="cuda")
+    r = regions.detach().requires_grad_(True)
+    w = words.detach().requires_grad_(True)
+    plain = damsm.words_similarity_reference(r, words, lens)
+    plain_w = damsm.words_similarity_reference(regions, w, lens)
+    # The products need only the valid words (a padded word's attention is
+    # 0 and its cosine is masked out): count S * D per valid word and pair.
+    pair_sld = Bi * int(lens.sum()) * S * D
+    damsm_rows = {
+        "words_similarity_forward": dict(
+            ms=time_cuda(lambda: damsm.words_similarity_forward(
+                regions, words, lens), flush),
+            plain_ms=time_cuda(lambda: damsm.words_similarity_reference(
+                regions, words, lens), flush),
+            flop=4 * pair_sld),
+        "words_similarity_backward_dr": dict(
+            ms=time_cuda(lambda: damsm.words_similarity_backward_dr(
+                regions, words, lens, dsim), flush),
+            plain_ms=time_cuda(lambda: torch.autograd.grad(
+                plain, r, dsim, retain_graph=True), flush),
+            flop=10 * pair_sld),
+        "words_similarity_backward_dw": dict(
+            ms=time_cuda(lambda: damsm.words_similarity_backward_dw(
+                regions, words, lens, dsim), flush),
+            plain_ms=time_cuda(lambda: torch.autograd.grad(
+                plain_w, w, dsim, retain_graph=True), flush),
+            flop=8 * pair_sld),
+    }
+    for row in damsm_rows.values():
+        row["bound_ms"] = row["flop"] / FP32_FLOP_PER_S * 1e3
+        row["shape"] = [Bi, Bt, S, L, D]
+        row["valid_words"] = int(lens.sum())
+    del plain, plain_w
+    set_counts(saved)
+
+    step, state, frozen, batch, noise = train
+    step_ms = time_host(lambda: step(state, frozen, batch, noise), reps=10)
+    set_counts(saved)
+    log(f"phase 12 ok: affine backward {sum(x['ms'] for x in rows)} ms per "
+        f"step (bound {sum(x['bound_ms'] for x in rows)}); DAMSM "
+        f"{ {k: round(v['ms'], 4) for k, v in damsm_rows.items()} } ms; bf16 "
+        f"train step B={TRAIN_BATCH}: {step_ms} ms")
+    return rows, damsm_rows, step_ms
+
+
+def phase_train_breakdown(train, step_ms: float):
+    """Where one bf16 train step's time goes: the device's busy time per
+    step, its operations by time (torch.profiler) and the peak memory."""
+    import torch
+
+    step, state, frozen, batch, noise = train
+    saved = read_counts()
+    torch.cuda.reset_peak_memory_stats()
+    step(state, frozen, batch, noise)
+    torch.cuda.synchronize()
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    result = profile_steps(lambda: step(state, frozen, batch, noise), 3,
+                           step_ms)
+    result["peak_memory_mib"] = peak_mib
+    set_counts(saved)
+    log(f"phase 13 ok: bf16 train step device busy "
+        f"{result['device_busy_ms_per_step']} ms of {step_ms} ms; peak "
+        f"{peak_mib} MiB")
     return result
 
 
+
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--out", default=os.path.join(ROOT, "build",
+                                                      "chip_smoke.json"),
+                        help="JSON file for the full results")
+    args = parser.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -477,42 +1004,107 @@ def main() -> None:
         ptxas = [ln.strip() for ln in path.with_suffix(".log").read_text()
                  .splitlines() if "registers" in ln]
         log(f"phase 2 ok: built {lib_name} -> {path.name} in {build_s:.1f} s; "
-            f"ptxas: {ptxas[:4]}")
+            f"ptxas: {ptxas[:6]}")
 
     from eegan_tpu_torch.config import fresh_config
 
     ngf = fresh_config(os.path.join(ROOT, "cfg", "sample_bird.yml")).GAN.GF_DIM
+    train_ngf = bird_config("float32").GAN.GF_DIM
     err_f32, err_bf16 = phase_kernel_vs_plain(ngf)
+    bwd_err = phase_affine_backward(train_ngf)
+    damsm_err = phase_damsm_kernels()
+    parity = phase_train_parity()
+    bf16_train, train = phase_train_bf16()
     slice_result, (step_bf16, models_bf16, inputs) = phase_slice(ngf)
     phase_cli()
     rows, step, step_ms = phase_times(ngf, step_bf16, models_bf16, inputs)
     breakdown = phase_breakdown(step_bf16, models_bf16, inputs, step["kernel"])
+    bwd_rows, damsm_rows, train_ms = phase_train_times(train_ngf, train)
+    train_breakdown = phase_train_breakdown(train, train_ms)
 
+    card = {"gpu": name, "nvidia_smi": smi}
     step_line = {"sample_step": {
         "config": "cfg/sample_bird.yml + RUNTIME.PALLAS_AFFINE=true",
         "batch": BATCH, "dtype": "bfloat16",
         "ms": step["kernel"], "images_per_s": BATCH / step["kernel"] * 1e3,
-        "ms_plain_affine": step["plain"], "runs_ms": step_ms,
-        "gpu": name, "nvidia_smi": smi}}
-    log(json.dumps({"affine_launches": rows, "gpu": name, "nvidia_smi": smi}))
+        "ms_plain_affine": step["plain"], "runs_ms": step_ms, **card}}
+    train_line = {"train_step": {
+        "config": "cfg/bird.yml + RUNTIME.PALLAS_AFFINE=true "
+                  "+ RUNTIME.PALLAS_DAMSM=true",
+        "batch": TRAIN_BATCH, "dtype": "bfloat16", "ms": train_ms,
+        "images_per_s": TRAIN_BATCH / train_ms * 1e3,
+        "launches_per_step": bf16_train["launches_per_step"],
+        "float32_parity": parity, **card}}
+    results = {"affine_launches": rows, "affine_backward_launches": bwd_rows,
+               "damsm": damsm_rows, **step_line, **train_line,
+               "breakdown": breakdown, "train_breakdown": train_breakdown,
+               "bf16_train_metrics": bf16_train["metrics"],
+               "checks": {"affine_max_abs_err": {"float32": err_f32,
+                                                 "bfloat16": err_bf16},
+                          "affine_backward_max_abs_err": bwd_err,
+                          "damsm_max_abs_err": damsm_err,
+                          "sample_slice": slice_result},
+               **card}
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(results, f, indent=1)
+    # Per-launch times and the profiles' operation lists are in the file;
+    # standard output keeps the summaries.
     log(json.dumps(step_line))
-    log(json.dumps({"breakdown": breakdown, "gpu": name, "nvidia_smi": smi}))
-    kernels = {"kernels": [{
-        "name": "affine_mask_relu",
-        "route": "cuda",
-        "source": "eegan_tpu_torch/ops/csrc/affine_mask_relu.cu",
-        "replaces": "eegan_tpu/ops/affine_pallas.py:60",
-        "launches": slice_result["launches"],
-        "max_abs_err": err_f32,
-        "max_abs_err_bf16": err_bf16,
-        "ms": sum(r["ms"] for r in rows),
-        "plain_ms": sum(r["plain_ms"] for r in rows),
-        "bound_ms": sum(r["bound_ms"] for r in rows),
-        "bound_by": "bytes",
-        "library_ms": None,
-        "timed": "one generator forward's 14 launches, B=8, bfloat16, "
-                 "sum of per-launch medians",
-    }]}
+    log(json.dumps({k: v for k, v in train_line["train_step"].items()
+                    if k != "float32_parity"}))
+    for key, value in (("breakdown", breakdown),
+                       ("train_breakdown", train_breakdown)):
+        log(json.dumps({key: {k: v for k, v in value.items()
+                              if not k.startswith("top_")}, **card}))
+
+    launches = parity["launches"]
+    timed_bwd = ("one train step's 14 backward launches, B=32, bfloat16, "
+                 "sum of per-launch medians")
+    timed_damsm = "one launch at (Bi, Bt, S, L, D) = (32, 32, 289, 20, 256)"
+    kernels = {"kernels": [
+        {"name": "affine_mask_relu", "route": "cuda",
+         "source": "eegan_tpu_torch/ops/csrc/affine_mask_relu.cu",
+         "replaces": "eegan_tpu/ops/affine_pallas.py:60",
+         "launches": launches["affine_mask_relu"],
+         "launches_sample_step": slice_result["launches"],
+         "max_abs_err": err_f32, "max_abs_err_bf16": err_bf16,
+         "ms": sum(r["ms"] for r in rows),
+         "plain_ms": sum(r["plain_ms"] for r in rows),
+         "bound_ms": sum(r["bound_ms"] for r in rows),
+         "bound_by": "bytes", "library_ms": None,
+         "timed": "one generator forward's 14 launches, B=8, bfloat16, "
+                  "sum of per-launch medians"},
+        {"name": "affine_mask_relu_backward", "route": "cuda",
+         "source": "eegan_tpu_torch/ops/csrc/affine_mask_relu_bwd.cu",
+         "replaces": "eegan_tpu/ops/affine_pallas.py:74",
+         "launches": launches["affine_mask_relu_backward"],
+         "max_abs_err": max(v for k, v in bwd_err.items()
+                            if k.endswith("float32")),
+         "max_abs_err_bf16": max(v for k, v in bwd_err.items()
+                                 if k.endswith("bfloat16")),
+         "ms": sum(r["ms"] for r in bwd_rows),
+         "plain_ms": sum(r["plain_ms"] for r in bwd_rows),
+         "bound_ms": sum(r["bound_ms"] for r in bwd_rows),
+         "bound_by": "bytes", "library_ms": None, "timed": timed_bwd},
+    ]}
+    for kname, replaces, err in (
+            ("words_similarity_forward", "_kernel", damsm_err["sims"]),
+            ("words_similarity_backward_dr", "_bwd_dr_kernel",
+             damsm_err["d_regions"]),
+            ("words_similarity_backward_dw", "_bwd_dw_kernel",
+             damsm_err["d_words"])):
+        line = {"_kernel": 109, "_bwd_dr_kernel": 178,
+                "_bwd_dw_kernel": 202}[replaces]
+        row = damsm_rows[kname]
+        kernels["kernels"].append({
+            "name": kname, "route": "cuda",
+            "source": "eegan_tpu_torch/ops/csrc/damsm_words.cu",
+            "replaces": f"eegan_tpu/ops/damsm_pallas.py:{line}",
+            "launches": launches[kname], "max_abs_err": err,
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": "operations",
+            "library_ms": None, "timed": timed_damsm})
     log(json.dumps(kernels))
     log(smi)
     log(json.dumps({"ok": True, "device": {

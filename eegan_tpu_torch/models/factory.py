@@ -1,17 +1,21 @@
 """Model bundle construction from a Config (counterpart of
-``eegan_tpu/models/factory.py``), for the sampling path: the generator,
-AttrEnhance and the frozen text encoder.
+``eegan_tpu/models/factory.py``): the generator, AttrEnhance, one
+discriminator per scale (the class head only at the last, as
+``eegan_tpu/models/factory.py:48-55``), the frozen text encoder and the
+frozen image encoder.
 
-Unlike the JAX factory, RUNTIME.PALLAS_AFFINE is not gated on the backend:
-``ops/affine.affine_mask_relu`` dispatches on the tensors' device itself.
-RUNTIME.REMAT, REMAT_BLOCKS and S2D_CONVS are training/TPU lowerings that
-are not on the sampling path; they are accepted and ignored.
+Unlike the JAX factory, RUNTIME.PALLAS_AFFINE and PALLAS_DAMSM are not
+gated on the backend: the ops dispatch on the tensors' device themselves
+(CUDA tensors launch the kernels, CPU tensors take the plain versions).
+RUNTIME.S2D_CONVS is a TPU lane-packing lowering of the same math and is
+ignored; the train step refuses the REMAT keys, which are not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Tuple
 
 import torch
 import torch.nn as nn
@@ -19,7 +23,9 @@ import torch.nn as nn
 from eegan_tpu_torch import resolve_device
 from eegan_tpu_torch.config import Config
 from eegan_tpu_torch.models.attr_enhance import AttrEnhance
+from eegan_tpu_torch.models.discriminator import Discriminator
 from eegan_tpu_torch.models.generator import Generator
+from eegan_tpu_torch.models.image_encoder import ImageEncoder
 from eegan_tpu_torch.models.layers import DTYPES
 from eegan_tpu_torch.models.text_encoder import TextEncoder
 
@@ -32,7 +38,10 @@ def compute_dtype(config: Config) -> torch.dtype:
 class ModelBundle:
     generator: Generator
     attr_enhance: AttrEnhance
+    discriminators: Tuple[Discriminator, ...]  # one per branch scale
     text_encoder: TextEncoder
+    image_encoder: ImageEncoder
+    scales: Tuple[int, ...]
     device: torch.device
 
 
@@ -41,15 +50,28 @@ def build_models(config: Config, n_words: int, device="cuda") -> ModelBundle:
     dev = resolve_device(device)
     dt = compute_dtype(config)
     emb = config.TEXT.EMBEDDING_DIM
+    cl = torch.channels_last
+    scales = tuple(config.imsizes)
     generator = Generator(ngf=config.GAN.GF_DIM, nz=config.GAN.Z_DIM,
                           cond_dim=emb, compute_dtype=dt,
                           up_fused=config.RUNTIME.FUSED_UPSAMPLE,
                           pallas_affine=config.RUNTIME.PALLAS_AFFINE)
+    discs = tuple(
+        Discriminator(ndf=config.GAN.DF_DIM, scale=s,
+                      disc_class=config.TRAIN.USE_CLASS
+                      and i == len(scales) - 1,
+                      class_nums=config.TRAIN.CLASS_NUM, nef=emb,
+                      compute_dtype=dt).to(dev, memory_format=cl)
+        for i, s in enumerate(scales))
     return ModelBundle(
-        generator=generator.to(dev, memory_format=torch.channels_last),
+        generator=generator.to(dev, memory_format=cl),
         attr_enhance=AttrEnhance(ntf=emb, compute_dtype=dt).to(dev),
+        discriminators=discs,
         text_encoder=TextEncoder(ntoken=n_words, nhidden=emb,
                                  rnn_type=config.RNN_TYPE).to(dev),
+        image_encoder=ImageEncoder(nef=emb, compute_dtype=dt).to(
+            dev, memory_format=cl),
+        scales=scales,
         device=dev,
     )
 

@@ -21,9 +21,11 @@ reference ``.pth`` files load with ``load_state_dict``.
 shortcut before the upsample and runs the Cum blocks' up_conv3 as the
 subpixel conv of ``ops/upconv.py``: the same math. ``pallas_affine``
 (RUNTIME.PALLAS_AFFINE) runs normalise + upsample + modulate + ReLU through
-``ops/affine.affine_mask_relu`` (the CUDA kernel for CUDA tensors).
-RUNTIME.REMAT and RUNTIME.S2D_CONVS are not on the sampling path: the
-factory accepts them and ignores them.
+``ops/affine.affine_mask_relu`` (the CUDA kernels for CUDA tensors, forward
+and backward; in train mode the batch statistics come from
+``TorchBatchNorm.batch_stats`` with their graph, so dmean and dvar flow back
+through them). RUNTIME.REMAT is not ported (the train step refuses it) and
+RUNTIME.S2D_CONVS is ignored.
 """
 
 from __future__ import annotations

@@ -15,8 +15,10 @@
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -26,12 +28,18 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 
 class Conv2d(nn.Conv2d):
-    """Stride-1 'same' conv computing in ``compute_dtype``."""
+    """Conv computing in ``compute_dtype``; 'same' padding (k // 2 per
+    side) unless ``padding`` is given."""
 
-    def __init__(self, in_ch: int, out_ch: int, kernel_size: int,
-                 bias: bool = False, compute_dtype=torch.float32):
-        super().__init__(in_ch, out_ch, kernel_size, padding=kernel_size // 2,
-                         bias=bias)
+    def __init__(self, in_ch: int, out_ch: int, kernel_size,
+                 bias: bool = False, compute_dtype=torch.float32,
+                 stride=1, padding=None):
+        if padding is None:
+            ks = ((kernel_size, kernel_size) if isinstance(kernel_size, int)
+                  else kernel_size)
+            padding = tuple(k // 2 for k in ks)
+        super().__init__(in_ch, out_ch, kernel_size, stride=stride,
+                         padding=padding, bias=bias)
         self.compute_dtype = compute_dtype
         if bias:
             nn.init.zeros_(self.bias)
@@ -40,7 +48,7 @@ class Conv2d(nn.Conv2d):
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
         return F.conv2d(x.to(dt), self.weight.to(dt), bias,
-                        padding=self.padding)
+                        stride=self.stride, padding=self.padding)
 
 
 def conv1x1(in_ch: int, out_ch: int, bias: bool = False,
@@ -51,6 +59,13 @@ def conv1x1(in_ch: int, out_ch: int, bias: bool = False,
 def conv3x3(in_ch: int, out_ch: int, bias: bool = False,
             compute_dtype=torch.float32) -> Conv2d:
     return Conv2d(in_ch, out_ch, 3, bias=bias, compute_dtype=compute_dtype)
+
+
+def conv4x4_down(in_ch: int, out_ch: int, bias: bool = False,
+                 compute_dtype=torch.float32) -> Conv2d:
+    """4x4 stride-2 conv, padding 1 (reference `models.py:22`)."""
+    return Conv2d(in_ch, out_ch, 4, bias=bias, compute_dtype=compute_dtype,
+                  stride=2, padding=1)
 
 
 class Linear(nn.Linear):
@@ -119,6 +134,15 @@ class TorchBatchNorm(nn.BatchNorm2d):
         return y
 
 
+def leaky_relu(x, negative_slope: float = 0.2):
+    return F.leaky_relu(x, negative_slope)
+
+
+def avg_pool_2x(x):
+    """2x2 stride-2 average pool (VALID)."""
+    return F.avg_pool2d(x, 2, 2)
+
+
 def upsample_nearest_2x(x):
     """Nearest-neighbour 2x upsample (reference `F.interpolate(x, 2)`)."""
     return F.interpolate(x, scale_factor=2.0, mode="nearest")
@@ -131,6 +155,43 @@ def resize_bilinear_align_corners(x, out_hw: Tuple[int, int]):
         return x
     return F.interpolate(x, size=tuple(out_hw), mode="bilinear",
                          align_corners=True)
+
+
+@functools.lru_cache(maxsize=None)
+def _half_pixel_matrix(src: int, dst: int) -> np.ndarray:
+    """Interpolation matrix (dst, src) of ``jax.image.resize(...,
+    "bilinear")``: the triangle kernel at half-pixel centres, widened by
+    src/dst when shrinking (antialias), each row normalised to sum 1, and
+    zero for a sample outside the input (as
+    ``jax._src.image.scale.compute_weight_mat``)."""
+    scale = np.float32(dst / src)
+    inv = np.float32(1.0) / scale
+    kernel_scale = max(inv, np.float32(1.0))
+    sample = (np.arange(dst, dtype=np.float32) + np.float32(0.5)) * inv \
+        - np.float32(0.5)
+    dist = np.abs(sample[None, :] - np.arange(src, dtype=np.float32)[:, None])
+    w = np.maximum(np.float32(0.0), np.float32(1.0) - dist / kernel_scale)
+    total = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, 1), 0)
+    inside = (sample >= -0.5) & (sample <= src - 0.5)
+    return np.ascontiguousarray(np.where(inside[None, :], w, 0).T
+                                .astype(np.float32))
+
+
+def resize_bilinear_half_pixel(x, out_hw: Tuple[int, int]):
+    """Bilinear resize with half-pixel centres (align_corners=False), NCHW,
+    as ``jax.image.resize(method="bilinear")`` computes it (antialiased
+    when shrinking), in x's dtype. The image encoder resizes 256 -> 299
+    with it. Two interpolation matmuls, like the align_corners resize of
+    the JAX package."""
+    h, w = x.shape[2:]
+    ah = torch.from_numpy(_half_pixel_matrix(h, out_hw[0])).to(x.device,
+                                                                x.dtype)
+    aw = torch.from_numpy(_half_pixel_matrix(w, out_hw[1])).to(x.device,
+                                                                x.dtype)
+    x = torch.einsum("Hh,bchw->bcHw", ah, x)
+    return torch.einsum("Ww,bchw->bchW", aw, x)
 
 
 class ToImage(nn.Sequential):

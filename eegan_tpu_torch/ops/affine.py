@@ -10,19 +10,21 @@ the FUSED_UPSAMPLE schedule whose BN statistics live at the pre-upsample
 resolution). The statistics stay outside (``TorchBatchNorm(return_stats)``).
 
 * :func:`affine_mask_relu` dispatches on the tensors' device: a CUDA tensor
-  goes to the hand-written kernel ``csrc/affine_mask_relu.cu`` (or raises);
-  a CPU tensor goes to the plain version. There is no other fallback.
+  goes through :class:`AffineMaskReLU`, whose forward is the hand-written
+  kernel ``csrc/affine_mask_relu.cu`` and whose backward is
+  ``csrc/affine_mask_relu_bwd.cu`` (the port of ``_affine_vjp_bwd``),
+  giving the gradients of x, mean, var, gamma, beta and mask; a CPU tensor
+  goes to the plain version, and autograd of it is the plain backward.
+  There is no other fallback: a CUDA tensor launches the kernel or raises.
 * :func:`affine_mask_relu_reference` is the plain PyTorch version, the math
   of ``affine_pallas.py:255-271`` (fp32 inside).
-* ``affine_mask_relu.launches`` counts kernel launches.
+* ``affine_mask_relu.launches`` and ``affine_mask_relu_backward.launches``
+  count kernel launches (the backward's two CUDA launches count as one).
 
 Layout: x (B, C, h, w) and the result (B, C, H, W) are NCHW tensors in
 ``torch.channels_last`` memory format (NHWC bytes, as the TPU kernel's);
 mask (B, 1, H, W); gamma, beta (B, C) in x's dtype; mean, var (C,) float32.
-
-The kernel is forward-only for now: on CUDA, an input that requires grad
-raises ``NotImplementedError`` (the backward kernel, the port of
-``_affine_vjp_bwd``, comes with the training slice).
+The gradients come in the inputs' dtypes and layouts.
 """
 
 from __future__ import annotations
@@ -55,6 +57,11 @@ def affine_mask_relu_reference(x, mean, var, gamma, beta, mask,
         memory_format=torch.channels_last)
 
 
+_BWD_MAX_C = 512
+_BWD_BLOCKS = 1024  # aimed-at blocks per backward launch, over all samples
+_BWD_PIXELS_PER_BLOCK = 8  # one low-res pixel per warp per step
+
+
 def _lib():
     lib = _build.load("affine_mask_relu")
     fn = lib.eegan_affine_mask_relu_fwd
@@ -66,7 +73,21 @@ def _lib():
     return fn
 
 
+def _bwd_lib():
+    lib = _build.load("affine_mask_relu_bwd")
+    fn = lib.eegan_affine_mask_relu_bwd
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 14 + [i] * 5 + [ctypes.c_float, i, i, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def _check(x, mean, var, gamma, beta, mask, up, out_dtype):
+    if x.device.type != "cuda":
+        raise ValueError(f"the affine kernels take CUDA tensors, got "
+                         f"{x.device} (affine_mask_relu takes the plain "
+                         "version on the CPU)")
     tensors = dict(x=x, mean=mean, var=var, gamma=gamma, beta=beta, mask=mask)
     for name, t in tensors.items():
         if t.device != x.device:
@@ -101,21 +122,7 @@ def _check(x, mean, var, gamma, beta, mask, up, out_dtype):
     return B, C, h, w, H, W
 
 
-def affine_mask_relu(x, mean, var, gamma, beta, mask, up: bool = False,
-                     eps: float = 1e-5, out_dtype=torch.float32):
-    """relu((gamma*mask+1) * normalise(x) + beta*mask), one fused pass.
-
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
-    """
-    if x.device.type == "cpu":
-        return affine_mask_relu_reference(x, mean, var, gamma, beta, mask,
-                                          up, eps, out_dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
-    if any(t.requires_grad for t in (x, mean, var, gamma, beta, mask)):
-        raise NotImplementedError(
-            "affine_mask_relu has no backward kernel yet; call it under "
-            "torch.no_grad()/inference_mode()")
+def _forward_kernel(x, mean, var, gamma, beta, mask, up, eps, out_dtype):
     B, C, h, w, H, W = _check(x, mean, var, gamma, beta, mask, up, out_dtype)
     out = torch.empty((B, C, H, W), dtype=out_dtype, device=x.device,
                       memory_format=torch.channels_last)
@@ -137,6 +144,94 @@ def affine_mask_relu(x, mean, var, gamma, beta, mask, up: bool = False,
                            f"error {err}")
     affine_mask_relu.launches += 1
     return out
+
+
+def affine_mask_relu_backward(x, mean, var, gamma, beta, mask, dy,
+                              up: bool = False, eps: float = 1e-5):
+    """The backward kernel: (dx, dmean, dvar, dgamma, dbeta, dmask) from the
+    forward's inputs and the output gradient ``dy`` (B, C, H, W), each in
+    its input's dtype and layout. CUDA tensors only."""
+    B, C, h, w, H, W = _check(x, mean, var, gamma, beta, mask, up, dy.dtype)
+    if tuple(dy.shape) != (B, C, H, W):
+        raise ValueError(f"dy has shape {tuple(dy.shape)}, expected "
+                         f"{(B, C, H, W)}")
+    if dy.device != x.device:
+        raise ValueError(f"dy is on {dy.device}, x on {x.device}")
+    if not dy.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError("dy must be contiguous in channels_last memory "
+                         "format")
+    if C > _BWD_MAX_C:
+        raise ValueError(f"the backward kernel takes C <= {_BWD_MAX_C}, "
+                         f"got {C}")
+    dev = x.device
+    dx = torch.empty_like(x, memory_format=torch.channels_last)
+    dmask = torch.empty_like(mask)
+    dgamma = torch.empty_like(gamma)
+    dbeta = torch.empty_like(beta)
+    dmean = torch.empty_like(mean)
+    dvar = torch.empty_like(var)
+    nblk = max(1, min(-(-h * w // _BWD_PIXELS_PER_BLOCK),
+                      -(-_BWD_BLOCKS // max(B, 1))))
+    partial = torch.empty((B * nblk * 4 * C,), dtype=torch.float32,
+                          device=dev)
+    if x.numel() == 0:
+        return dx, dmean.zero_(), dvar.zero_(), dgamma.zero_(), \
+            dbeta.zero_(), dmask.zero_()
+    fn = _bwd_lib()
+    with torch.cuda.device(dev):
+        err = fn(x.data_ptr(), mean.data_ptr(), var.data_ptr(),
+                 gamma.data_ptr(), beta.data_ptr(), mask.data_ptr(),
+                 dy.data_ptr(), dx.data_ptr(), dmask.data_ptr(),
+                 dgamma.data_ptr(), dbeta.data_ptr(), dmean.data_ptr(),
+                 dvar.data_ptr(), partial.data_ptr(), B, h, w, C, int(up),
+                 float(eps), _DTYPE_CODES[x.dtype], _DTYPE_CODES[dy.dtype],
+                 nblk, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"affine_mask_relu backward kernel launch failed: "
+                           f"CUDA error {err}")
+    affine_mask_relu_backward.launches += 1
+    return dx, dmean, dvar, dgamma, dbeta, dmask
+
+
+affine_mask_relu_backward.launches = 0
+
+
+class AffineMaskReLU(torch.autograd.Function):
+    """Kernel 1 forward, kernel 2 backward (the port of the JAX custom VJP,
+    ``affine_pallas.py:166-252``). Nothing but the inputs is saved: the
+    backward recomputes z."""
+
+    @staticmethod
+    def forward(ctx, x, mean, var, gamma, beta, mask, up, eps, out_dtype):
+        ctx.up, ctx.eps = up, eps
+        ctx.save_for_backward(x, mean, var, gamma, beta, mask)
+        return _forward_kernel(x, mean, var, gamma, beta, mask, up, eps,
+                               out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, mean, var, gamma, beta, mask = ctx.saved_tensors
+        grads = affine_mask_relu_backward(
+            x, mean, var, gamma, beta, mask,
+            dy.contiguous(memory_format=torch.channels_last), ctx.up,
+            ctx.eps)
+        return (*grads, None, None, None)
+
+
+def affine_mask_relu(x, mean, var, gamma, beta, mask, up: bool = False,
+                     eps: float = 1e-5, out_dtype=torch.float32):
+    """relu((gamma*mask+1) * normalise(x) + beta*mask), one fused pass,
+    differentiable in all six tensors.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernels.
+    """
+    if x.device.type == "cpu":
+        return affine_mask_relu_reference(x, mean, var, gamma, beta, mask,
+                                          up, eps, out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    return AffineMaskReLU.apply(x, mean, var, gamma, beta, mask, up, eps,
+                                out_dtype)
 
 
 affine_mask_relu.launches = 0

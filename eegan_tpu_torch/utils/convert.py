@@ -39,7 +39,7 @@ def _leaves(tree, path: Tuple[str, ...] = ()
         if isinstance(value, Mapping):
             yield from _leaves(value, path + (str(key),))
         else:
-            yield path + (str(key),), np.asarray(value, np.float32)
+            yield path + (str(key),), np.array(value, np.float32)
 
 
 def _torch_key(path: Tuple[str, ...], collection: str) -> Optional[str]:
@@ -108,6 +108,31 @@ def from_jax_generator(variables) -> Dict[str, torch.Tensor]:
 def from_jax_attr_enhance(variables) -> Dict[str, torch.Tensor]:
     """JAX ``AttrEnhance`` params -> the port's state dict."""
     return _convert(variables)
+
+
+def _disc_rename(tk: str) -> str:
+    """JAX discriminator names -> reference `Dis*` keys (the inverse view
+    of ``eegan_tpu/utils/torch_convert.py:_disc_rename``): ResDown's
+    conv_r1/conv_r2 are Sequential indices 0/2 of ``conv_r``, DiscSent's
+    joint_conv1/2 indices 0/2 of ``joint_conv``, DiscCond's joinConv index
+    0."""
+    tk = tk.replace("conv_r1.", "conv_r.0.")
+    tk = tk.replace("conv_r2.", "conv_r.2.")
+    tk = tk.replace("joint_conv1.", "joint_conv.0.")
+    tk = tk.replace("joint_conv2.", "joint_conv.2.")
+    return tk.replace("joinConv.", "joinConv.0.")
+
+
+def from_jax_discriminator(variables) -> Dict[str, torch.Tensor]:
+    """JAX ``Discriminator`` params -> the port's state dict."""
+    return _convert(variables, _disc_rename)
+
+
+def from_jax_image_encoder(variables) -> Dict[str, torch.Tensor]:
+    """JAX ``ImageEncoder`` params + batch_stats -> the port's (reference
+    CNN_ENCODER) state dict: the trunk's keys lose the ``inception.``
+    prefix of the JAX tree."""
+    return _convert(variables, lambda tk: tk.removeprefix("inception."))
 
 
 def from_jax_text_encoder(variables) -> Dict[str, torch.Tensor]:

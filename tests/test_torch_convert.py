@@ -4,7 +4,8 @@ A JAX tree goes into the port (``eegan_tpu_torch.utils.convert.from_jax_*``
 then ``load_state_dict(strict=True)``), comes back out as the port's
 ``state_dict()`` and through the JAX package's converters
 (``torch_convert.convert_generator`` / ``convert_attr_enhance`` /
-``convert_text_encoder``) to the original tree, exactly. Those converters
+``convert_text_encoder`` / ``convert_discriminator`` /
+``convert_image_encoder``) to the original tree, exactly. Those converters
 read reference EE-GAN / AttnGAN keys, so this proves the port's key names
 and layouts are the reference's.
 """
@@ -16,16 +17,22 @@ import pytest
 import torch
 
 from eegan_tpu.models.attr_enhance import AttrEnhance as JaxAttrEnhance
+from eegan_tpu.models.discriminator import Discriminator as JaxDiscriminator
 from eegan_tpu.models.generator import Generator as JaxGenerator
+from eegan_tpu.models.image_encoder import ImageEncoder as JaxImageEncoder
 from eegan_tpu.models.text_encoder import TextEncoder as JaxTextEncoder
 from eegan_tpu.utils import torch_convert
 from eegan_tpu_torch.models.attr_enhance import AttrEnhance
+from eegan_tpu_torch.models.discriminator import Discriminator
 from eegan_tpu_torch.models.factory import randomize_
 from eegan_tpu_torch.models.generator import Generator
+from eegan_tpu_torch.models.image_encoder import ImageEncoder
 from eegan_tpu_torch.models.text_encoder import TextEncoder
 from eegan_tpu_torch.utils.convert import (
     from_jax_attr_enhance,
+    from_jax_discriminator,
     from_jax_generator,
+    from_jax_image_encoder,
     from_jax_text_encoder,
     load_state_dict,
 )
@@ -98,6 +105,32 @@ def test_text_encoder_round_trip(rnn_type):
     got = torch_convert.convert_text_encoder(_sd(port), tree, consumed)
     _assert_trees_equal(got, tree)
     assert consumed == set(port.state_dict())  # no key left unread
+
+
+@pytest.mark.parametrize("scale,disc_class", [(64, False), (256, True)])
+def test_discriminator_round_trip(scale, disc_class):
+    template = jax.eval_shape(lambda: JaxDiscriminator(
+        4, scale, disc_class, 7).init(
+            jax.random.PRNGKey(0), jnp.zeros((2, scale, scale, 3)),
+            jnp.zeros((2, 256))))
+    tree = _random_tree(template, 5)
+    port = Discriminator(4, scale, disc_class, 7, 256)
+    port.load_state_dict(from_jax_discriminator(tree))
+    _assert_trees_equal(
+        torch_convert.convert_discriminator(_sd(port), tree), tree)
+
+
+def test_image_encoder_round_trip():
+    template = jax.eval_shape(lambda: JaxImageEncoder(nef=16).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3))))
+    tree = _random_tree(template, 6)
+    port = ImageEncoder(nef=16)
+    port.load_state_dict(from_jax_image_encoder(tree))
+    consumed = set()
+    got = torch_convert.convert_image_encoder(_sd(port), tree, consumed)
+    _assert_trees_equal(got, tree)
+    assert consumed == {k for k in port.state_dict()
+                        if not k.endswith("num_batches_tracked")}
 
 
 def test_load_state_dict_strips_module_prefix(tmp_path):

@@ -76,6 +76,57 @@ def test_resize_bilinear_align_corners_matches_jax(src, dst):
     np.testing.assert_allclose(_nhwc(got), np.asarray(want), **TOL)
 
 
+@pytest.mark.parametrize("src,dst", [((256, 256), (299, 299)),
+                                     ((5, 7), (11, 9)), ((12, 9), (5, 4)),
+                                     ((6, 6), (6, 6))])
+def test_resize_bilinear_half_pixel_matches_jax(src, dst):
+    """Up (the image encoder's 256 -> 299), down (antialiased, as
+    jax.image.resize) and the identity."""
+    x = _randn(1, *src, 3, seed=11)
+    want = jl.resize_bilinear_half_pixel(jnp.asarray(x), dst)
+    got = tl.resize_bilinear_half_pixel(_nchw(x), dst)
+    assert tuple(got.shape) == (1, 3, *dst)
+    np.testing.assert_allclose(_nhwc(got), np.asarray(want), **TOL)
+
+
+def test_resize_bilinear_half_pixel_is_not_interpolate_when_shrinking():
+    """Shrinking, jax.image.resize antialiases and F.interpolate does not:
+    the port follows JAX."""
+    x = _randn(1, 12, 12, 1, seed=12)
+    plain = torch.nn.functional.interpolate(_nchw(x), size=(5, 5),
+                                            mode="bilinear",
+                                            align_corners=False)
+    got = tl.resize_bilinear_half_pixel(_nchw(x), (5, 5))
+    assert float((got - plain).abs().max()) > 1e-2
+
+
+@pytest.mark.parametrize("kind", ["conv4x4_down", "conv1x1_bias"])
+def test_discriminator_convs_match_jax(kind):
+    x = _randn(2, 8, 6, 5, seed=13)
+    if kind == "conv4x4_down":
+        port, jmod = tl.conv4x4_down(5, 7), jl.conv4x4_down(7)
+    else:
+        port, jmod = tl.conv1x1(5, 7, bias=True), jl.conv1x1(7, use_bias=True)
+    randomize_(port, 14)
+    params = {"kernel": port.weight.detach().numpy().transpose(2, 3, 1, 0)}
+    if port.bias is not None:
+        params["bias"] = port.bias.detach().numpy()
+    want = jmod.apply({"params": params}, x)
+    got = port(_nchw(x).contiguous(memory_format=torch.channels_last))
+    assert _nhwc(got).shape == want.shape
+    np.testing.assert_allclose(_nhwc(got), np.asarray(want), **TOL)
+
+
+def test_leaky_relu_and_avg_pool_match_jax():
+    x = _randn(2, 6, 4, 3, seed=15)
+    np.testing.assert_allclose(_nhwc(tl.leaky_relu(_nchw(x), 0.2)),
+                               np.asarray(jl.leaky_relu(jnp.asarray(x), 0.2)),
+                               **TOL)
+    np.testing.assert_allclose(_nhwc(tl.avg_pool_2x(_nchw(x))),
+                               np.asarray(jl.avg_pool_2x(jnp.asarray(x))),
+                               **TOL)
+
+
 def test_upsample_nearest_matches_jax():
     x = _randn(2, 3, 5, 4, seed=5)
     np.testing.assert_array_equal(
