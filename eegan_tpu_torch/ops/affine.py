@@ -19,7 +19,10 @@ resolution). The statistics stay outside (``TorchBatchNorm(return_stats)``).
 * :func:`affine_mask_relu_reference` is the plain PyTorch version, the math
   of ``affine_pallas.py:255-271`` (fp32 inside).
 * ``affine_mask_relu.launches`` and ``affine_mask_relu_backward.launches``
-  count kernel launches (the backward's two CUDA launches count as one).
+  count kernel launches.
+* :func:`backward_launch_plan` is the backward kernel's launch plan (vector
+  width, lanes per pixel, blocks per sample, scratch), plain Python that the
+  CPU tests reach.
 
 Layout: x (B, C, h, w) and the result (B, C, H, W) are NCHW tensors in
 ``torch.channels_last`` memory format (NHWC bytes, as the TPU kernel's);
@@ -58,8 +61,57 @@ def affine_mask_relu_reference(x, mean, var, gamma, beta, mask,
 
 
 _BWD_MAX_C = 512
-_BWD_BLOCKS = 1024  # aimed-at blocks per backward launch, over all samples
-_BWD_PIXELS_PER_BLOCK = 8  # one low-res pixel per warp per step
+# Blocks per backward launch: one or two whole waves of two blocks per SM
+# (264 on 132 SMs), the second when there are about 16 pixel steps per
+# block for it, and never more blocks than steps.
+_BWD_WAVE = 264
+_BWD_STEPS_PER_BLOCK = 16
+
+
+def _pow2_ceil(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+def _bwd_unroll(up: bool, channels_per_lane: int) -> int:
+    """Low-res pixels a group takes per step: the kernel's own rule
+    (``unroll_for``), which sizes the grid here."""
+    if up:
+        return 1
+    return 4 if channels_per_lane <= 8 else 2
+
+
+def backward_launch_plan(B: int, C: int, h: int, w: int, up: bool,
+                         in_dtype=torch.bfloat16, aligned: bool = True
+                         ) -> dict:
+    """The backward kernel's launch at these shapes.
+
+    A thread takes ``vec`` channels per access (16 bytes of x: 8 bf16 or 4
+    float32; 1 when C is not a multiple of that or an operand is not 16-byte
+    aligned), ``vecs_per_lane`` vectors per pixel; ``lanes`` lanes (a power
+    of 2, at most 32) cover one low-res pixel, so a warp covers
+    ``pixels_per_warp`` pixels at once and a group takes ``unroll`` of them
+    per step. ``blocks_per_sample`` blocks of 256 threads per sample fill
+    one or two whole waves of two blocks per SM of an H100 (a partial wave
+    costs as much as a whole one), the second only for about 16 steps per
+    block. ``scratch_floats`` is the float32 partial buffer, four sums per
+    block and channel, which a second launch sums in a fixed order.
+    """
+    if not 0 < C <= _BWD_MAX_C:
+        raise ValueError(f"the backward kernel takes 0 < C <= {_BWD_MAX_C}, "
+                         f"got {C}")
+    vmax = 16 // torch.empty((), dtype=in_dtype).element_size()
+    vec = vmax if C % vmax == 0 and aligned else 1
+    nvec = C // vec
+    lanes = min(32, _pow2_ceil(nvec))
+    vpl = _pow2_ceil(-(-nvec // lanes))
+    unroll = _bwd_unroll(up, vec * vpl)
+    steps = -(-h * w // (_THREADS // lanes * unroll))  # per sample
+    waves = min(2, max(1, round(B * steps / (_BWD_WAVE *
+                                             _BWD_STEPS_PER_BLOCK))))
+    nblk = max(1, min(waves * _BWD_WAVE // B, steps))
+    return dict(vec=vec, lanes=lanes, vecs_per_lane=vpl, unroll=unroll,
+                pixels_per_warp=32 // lanes, blocks_per_sample=nblk,
+                grid=(nblk, B), scratch_floats=B * nblk * 4 * C)
 
 
 def _lib():
@@ -78,7 +130,7 @@ def _bwd_lib():
     fn = lib.eegan_affine_mask_relu_bwd
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 14 + [i] * 5 + [ctypes.c_float, i, i, i, p]
+        fn.argtypes = [p] * 14 + [i] * 5 + [ctypes.c_float] + [i] * 6 + [p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -163,6 +215,9 @@ def affine_mask_relu_backward(x, mean, var, gamma, beta, mask, dy,
     if C > _BWD_MAX_C:
         raise ValueError(f"the backward kernel takes C <= {_BWD_MAX_C}, "
                          f"got {C}")
+    if B > _MAX_GRID_Y:
+        raise ValueError(f"the backward kernel takes at most {_MAX_GRID_Y} "
+                         f"samples, got {B}")
     dev = x.device
     dx = torch.empty_like(x, memory_format=torch.channels_last)
     dmask = torch.empty_like(mask)
@@ -170,13 +225,13 @@ def affine_mask_relu_backward(x, mean, var, gamma, beta, mask, dy,
     dbeta = torch.empty_like(beta)
     dmean = torch.empty_like(mean)
     dvar = torch.empty_like(var)
-    nblk = max(1, min(-(-h * w // _BWD_PIXELS_PER_BLOCK),
-                      -(-_BWD_BLOCKS // max(B, 1))))
-    partial = torch.empty((B * nblk * 4 * C,), dtype=torch.float32,
-                          device=dev)
     if x.numel() == 0:
         return dx, dmean.zero_(), dvar.zero_(), dgamma.zero_(), \
             dbeta.zero_(), dmask.zero_()
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, dy, dx))
+    plan = backward_launch_plan(B, C, h, w, up, x.dtype, aligned)
+    partial = torch.empty((plan["scratch_floats"],), dtype=torch.float32,
+                          device=dev)
     fn = _bwd_lib()
     with torch.cuda.device(dev):
         err = fn(x.data_ptr(), mean.data_ptr(), var.data_ptr(),
@@ -185,7 +240,9 @@ def affine_mask_relu_backward(x, mean, var, gamma, beta, mask, dy,
                  dgamma.data_ptr(), dbeta.data_ptr(), dmean.data_ptr(),
                  dvar.data_ptr(), partial.data_ptr(), B, h, w, C, int(up),
                  float(eps), _DTYPE_CODES[x.dtype], _DTYPE_CODES[dy.dtype],
-                 nblk, torch.cuda.current_stream(dev).cuda_stream)
+                 plan["vec"], plan["lanes"], plan["vecs_per_lane"],
+                 plan["blocks_per_sample"],
+                 torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"affine_mask_relu backward kernel launch failed: "
                            f"CUDA error {err}")

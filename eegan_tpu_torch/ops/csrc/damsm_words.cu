@@ -24,40 +24,56 @@
 //
 // Bound: float32 operations. The products are 4 S L D flops per pair in the
 // forward, 10 S L D in the dR pass (A, C and dA recomputed, then two
-// products into dR) and 8 S L D in the dW pass; the inputs are a few MB.
-// The least time is those flops over the card's float32 rate (67 TFLOP/s on
-// an H100 SXM, outside the tensor cores).
+// products into dR) and 8 S L D in the dW pass, counted over the valid words
+// only; the inputs are a few MB. The least time is those flops over the
+// card's float32 rate (67 TFLOP/s on an H100 SXM, outside the tensor cores).
 //
 // Design. The TPU kernel packs a tile of texts into the lane dimension and
 // needs block-diagonal 0/1 matmuls (bd, gsum) and a one-hot column select
 // only because Mosaic cannot reshape lanes; here a block indexes its own
-// text and image, and a softmax over one text's words is a plain loop. The
-// per-group stabiliser of the TPU kernel is not needed either: the row max
-// over one text's words is exact.
+// text and image. The per-group stabiliser of the TPU kernel is not needed
+// either: the row max over one text's words is exact.
 //
 // * forward: one block per pair (Bi*Bt blocks). W, C and the (S, L) logits
 //   and probabilities sit in shared memory; R is read from global memory
 //   (9.5 MB for 32 images, held in the 50 MB L2).
-// * dR: one block per image, looping over the texts in order; it owns its
-//   image's dR rows, so it adds each text's part with a plain read-add-write
-//   and no other block touches them. Deterministic, no atomics, no
-//   (Bi, Bt, S, D) partial buffer.
+// * dR, two launches, no atomics, deterministic:
+//   - damsm_dr_pair, one block per pair (Bt x Bi = 1024 blocks at the train
+//     shape), runs the pair's forward and backward down to dA and dC over
+//     its n valid words only (rounded up to NQ, a multiple of 4, a template
+//     parameter), and writes dA and attn2 (n x S) and dC (n x D) to a float32
+//     scratch of 4 Bi Bt L (2 SP + D) bytes (68.8 MB at (32, 32, 289, 20,
+//     256)). Its three products (A = R W^T, C = attn2^T R, da2 = R dC^T) keep
+//     register tiles: a thread owns up to four regions x NQ words (or four
+//     columns x NQ words), so each float4 of R read from the L2 feeds 4 NQ
+//     multiply-adds or more, and the next one is loaded before they run.
+//     W, C/dC and the three (S, LP) grids (attn1, attn2, da2/dA) are in
+//     shared memory, 112.5 KB at that shape, so two blocks fit on an SM. The
+//     softmaxes, cosines and Z are group-wide: a word group of WG lanes (NQ
+//     rounded up to a power of 2) takes a region row, and the reductions
+//     are shuffles in the group or fixed-order sums of 256 partials in
+//     shared memory.
+//   - damsm_dr_sum, one block per image and 64 x 64 tile of (S, D) (640
+//     blocks), sums dR = sum_t (dA_t W_t + attn2_t dC_t) over the texts in
+//     index order, a product with K = 2 n_t per text staged in shared
+//     memory, 4 x 4 outputs per thread, each output written once.
 // * dW: one block per text, looping over the images in order; each thread
-//   keeps its column d of dW for all words in registers.
-// Products run on the CUDA cores in float32: R W^T and R dC^T as warp rows
-// (lane = word, four regions per step, float4 loads), attn2^T R and dA^T R
-// and the dR sums as thread columns (thread = d). A padded word gets
+//   keeps its column d of dW for all words in registers. It still uses one
+//   block per text (32 blocks) and the per-pair code of the forward.
+// Products run on the CUDA cores in float32. A padded word gets
 // attn1 = 0 exactly (exp(-1e9 - max)), hence dA = 0, dcos = 0 and an exactly
-// zero dW. Tensor cores (wgmma) and more blocks for dR/dW are later work.
+// zero dW; dR skips padded words altogether.
 //
 // C interface: eegan_damsm_words_{fwd,bwd_dr,bwd_dw}(...) return
-// cudaGetLastError() after the launch (0 = launched), or
+// cudaGetLastError() after the launches (0 = launched), or
 // cudaErrorInvalidValue for a shape outside the limits (D % 4 == 0,
-// D <= 256, L <= 32).
+// D <= 256, L <= 32) or a plan that does not cover the layout.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -334,55 +350,492 @@ __global__ void __launch_bounds__(kThreads) damsm_words_fwd(
   if (threadIdx.x == 0) sims[(int64_t)i * Bt + t] = logf(fmaxf(st.Z, kEps));
 }
 
-template <int LT>
-__global__ void __launch_bounds__(kThreads) damsm_words_bwd_dr(
+// ---------------------------------------------------------------------------
+// dR in two launches (see the note at the top): damsm_dr_pair, one block per
+// (text, image) pair, then damsm_dr_sum, one block per (image, 64x64 tile).
+// ---------------------------------------------------------------------------
+
+// Layout of dR's shared memory and scratch: LT = L rounded up to 4, the rows
+// of the (LT, D) tiles; LP, the row stride of the (S, LP) grids; SP, the row
+// stride of the scratch's (L, SP) planes. LP and SP come from the launch plan
+// (ops/damsm.py:dr_launch_plan).
+struct DrDims {
+  int Bi, Bt, S, L, D;
+  int LT, LP, DP, SP;
+};
+
+DrDims make_dr_dims(int Bi, int Bt, int S, int L, int D, int LP, int SP) {
+  DrDims d;
+  d.Bi = Bi;
+  d.Bt = Bt;
+  d.S = S;
+  d.L = L;
+  d.D = D;
+  d.LT = (L + 3) / 4 * 4;
+  d.LP = LP;
+  d.DP = D + 4;
+  d.SP = SP;
+  return d;
+}
+
+// Floats of damsm_dr_pair's dynamic shared memory: sW and sC (LT, DP), three
+// (S, LP) grids, kThreads floats for the column reductions and four 32-float
+// arrays of per-word statistics.
+size_t dr_pair_smem_floats(const DrDims& d) {
+  return (size_t)2 * d.LT * d.DP + (size_t)3 * d.S * d.LP + kThreads + 4 * 32;
+}
+
+__device__ __forceinline__ unsigned group_mask(int width) {
+  const int lane = threadIdx.x & 31;
+  return width == 32 ? 0xffffffffu
+                     : ((1u << width) - 1u) << (lane & ~(width - 1));
+}
+
+__device__ __forceinline__ float group_sum(float v, int width, unsigned m) {
+  for (int o = width >> 1; o > 0; o >>= 1) v += __shfl_xor_sync(m, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float group_max(float v, int width, unsigned m) {
+  for (int o = width >> 1; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(m, v, o));
+  return v;
+}
+
+// out[s, l] = <R[s], M[l]> for RS regions s = s0 + 64a and the NQ words l.
+// The four lanes of a region split D in float4 columns j = q mod 4; each
+// thread keeps RS x NQ sums in registers, so a float4 of R (from the L2)
+// feeds 4 NQ multiply-adds and a float4 of M (a shared-memory broadcast)
+// 4 RS. The lanes' parts are added by two shuffles; lane q writes l = q mod 4.
+template <int NQ, int RS>
+__device__ __forceinline__ void dr_rows_tile(const float* __restrict__ R,
+                                             const float* M, float* out,
+                                             int s0, int q, const DrDims& d) {
+  float acc[RS][NQ];
+#pragma unroll
+  for (int a = 0; a < RS; ++a)
+#pragma unroll
+    for (int l = 0; l < NQ; ++l) acc[a][l] = 0.0f;
+  const float4* r4[RS];
+#pragma unroll
+  for (int a = 0; a < RS; ++a)
+    r4[a] = reinterpret_cast<const float4*>(R + (int64_t)(s0 + 64 * a) * d.D);
+  const int D4 = d.D >> 2;
+  // The next column's loads are issued before this one's multiply-adds.
+  float4 v[RS];
+#pragma unroll
+  for (int a = 0; a < RS; ++a) v[a] = __ldg(r4[a] + (q < D4 ? q : 0));
+  for (int j = q; j < D4; j += 4) {
+    float4 vn[RS];
+#pragma unroll
+    for (int a = 0; a < RS; ++a)
+      vn[a] = __ldg(r4[a] + (j + 4 < D4 ? j + 4 : j));
+#pragma unroll
+    for (int l = 0; l < NQ; ++l) {
+      const float4 m = *reinterpret_cast<const float4*>(M + l * d.DP + 4 * j);
+#pragma unroll
+      for (int a = 0; a < RS; ++a) {
+        float x = fmaf(v[a].x, m.x, acc[a][l]);
+        x = fmaf(v[a].y, m.y, x);
+        x = fmaf(v[a].z, m.z, x);
+        acc[a][l] = fmaf(v[a].w, m.w, x);
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < RS; ++a) v[a] = vn[a];
+  }
+  const unsigned gm = group_mask(4);
+#pragma unroll
+  for (int a = 0; a < RS; ++a) {
+#pragma unroll
+    for (int l = 0; l < NQ; ++l) {
+      float v = acc[a][l];
+      v += __shfl_xor_sync(gm, v, 1);
+      v += __shfl_xor_sync(gm, v, 2);
+      if ((l & 3) == q) out[(s0 + 64 * a) * d.LP + l] = v;
+    }
+  }
+}
+
+// out[s, l] = <R[s], M[l]> for all S regions and the NQ words: 64 regions
+// per round and thread quad, two at a time, the odd last one alone.
+template <int NQ>
+__device__ void dr_rows(const float* __restrict__ R, const float* M,
+                        float* out, const DrDims& d) {
+  const int q = threadIdx.x & 3;
+  int s0 = threadIdx.x >> 2;
+  if constexpr (NQ <= 16)
+    for (; s0 + 192 < d.S; s0 += 256) dr_rows_tile<NQ, 4>(R, M, out, s0, q, d);
+  for (; s0 + 64 < d.S; s0 += 128) dr_rows_tile<NQ, 2>(R, M, out, s0, q, d);
+  if (s0 < d.S) dr_rows_tile<NQ, 1>(R, M, out, s0, q, d);
+}
+
+// C[l, c] = sum_s P[s, l] R[s, c] for the NQ words: a thread owns CW
+// neighbouring columns (4, or 2 where 4 NQ sums would not fit in registers)
+// and every KS-th region; KS neighbouring lanes share the columns and add
+// their parts by shuffles. A vector of R feeds CW NQ multiply-adds, a
+// float4 of P (a broadcast) 4 CW; the next region's load is issued before
+// this one's multiply-adds.
+template <int NQ>
+__device__ void dr_cols(const float* __restrict__ R, const float* P, float* C,
+                        const DrDims& d) {
+  constexpr int CW = NQ <= 20 ? 4 : 2;
+  using Vec = typename std::conditional<CW == 4, float4, float2>::type;
+  const int ncol = d.D / CW;
+  int KS = 32;  // largest power of 2 <= min(32, kThreads / ncol)
+  while (KS * ncol > kThreads) KS >>= 1;
+  const int cp = threadIdx.x / KS;
+  const int ks = threadIdx.x & (KS - 1);
+  if (cp >= ncol) return;  // whole groups of KS lanes
+  float acc[NQ][CW];
+#pragma unroll
+  for (int l = 0; l < NQ; ++l)
+#pragma unroll
+    for (int c = 0; c < CW; ++c) acc[l][c] = 0.0f;
+  const Vec* rc = reinterpret_cast<const Vec*>(R) + cp;
+  Vec v = __ldg(rc + (int64_t)(ks < d.S ? ks : 0) * ncol);
+  for (int s = ks; s < d.S; s += KS) {
+    const Vec vn = __ldg(rc + (int64_t)(s + KS < d.S ? s + KS : s) * ncol);
+    const float* vf = reinterpret_cast<const float*>(&v);
+    const float4* p = reinterpret_cast<const float4*>(P + s * d.LP);
+#pragma unroll
+    for (int q4 = 0; q4 < NQ / 4; ++q4) {
+      const float4 a = p[q4];
+      const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int c = 0; c < CW; ++c) acc[4 * q4 + e][c] += av[e] * vf[c];
+    }
+    v = vn;
+  }
+  const unsigned gm = group_mask(KS);
+#pragma unroll
+  for (int l = 0; l < NQ; ++l) {
+    Vec out;
+    float* of = reinterpret_cast<float*>(&out);
+#pragma unroll
+    for (int c = 0; c < CW; ++c) {
+      float x = acc[l][c];
+      for (int o = 1; o < KS; o <<= 1) x += __shfl_xor_sync(gm, x, o);
+      of[c] = x;
+    }
+    if ((l & (KS - 1)) == ks)
+      *reinterpret_cast<Vec*>(C + l * d.DP + CW * cp) = out;
+  }
+}
+
+// One (text t, image i) pair of the dR pass, for n valid words rounded up to
+// NQ (a multiple of 4). Writes the pair's dA and attn2 (n rows of S, word
+// major) and dC (n rows of D) to the scratch; damsm_dr_sum makes dR of them.
+template <int NQ>
+__device__ void dr_pair(const float* __restrict__ R,
+                        const float* __restrict__ W, int n, float g,
+                        float gamma1, float gamma2, const DrDims& d,
+                        float* __restrict__ oA, float* __restrict__ oG,
+                        float* __restrict__ oC) {
+  extern __shared__ float4 smem4[];
+  float* sW = reinterpret_cast<float*>(smem4);  // (LT, DP) words, 0 for l >= n
+  float* sC = sW + d.LT * d.DP;                 // (LT, DP) C, then dC
+  float* sP1 = sC + d.LT * d.DP;                // (S, LP) A, then attn1
+  float* sP2 = sP1 + d.S * d.LP;                // (S, LP) attn2
+  float* sX = sP2 + d.S * d.LP;                 // (S, LP) da2, then dA
+  float* red = sX + d.S * d.LP;                 // kThreads partials
+  float* st_cos = red + kThreads;               // per-word statistics
+  float* st_den = st_cos + 32;
+  float* st_cn2 = st_den + 32;
+  float* st_row = st_cn2 + 32;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  // Word groups: WG = NQ rounded up to a power of 2 lanes per region row;
+  // lane l of a group is word l.
+  const int WG = NQ <= 4 ? 4 : NQ <= 8 ? 8 : NQ <= 16 ? 16 : 32;
+  const int NSUB = kThreads / WG;  // region rows per pass
+  const int l = tid & (WG - 1);
+  const int sub = tid / WG;
+  const unsigned wm = group_mask(WG);
+  const int D4 = d.D >> 2;
+
+  for (int k = tid; k < NQ * D4; k += kThreads) {
+    const int r = k / D4;
+    const int c = k - r * D4;
+    // The address stays in bounds even if the load is issued for r >= n.
+    float4 v =
+        __ldg(reinterpret_cast<const float4*>(W + (r < n ? r : 0) * d.D) + c);
+    if (r >= n) v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    *reinterpret_cast<float4*>(sW + r * d.DP + 4 * c) = v;
+  }
+  __syncthreads();
+
+  // A = R W^T.
+  dr_rows<NQ>(R, sW, sP1, d);
+  __syncthreads();
+
+  // attn1: softmax over the n valid words of each region (a padded word's
+  // exp(-1e9 - max) is exactly 0 in the reference, 0 here).
+  for (int s = sub; s < d.S; s += NSUB) {
+    float* p = sP1 + s * d.LP;
+    const float a = l < n ? p[l] : -INFINITY;
+    const float mx = group_max(a, WG, wm);
+    const float e = l < n ? expf(a - mx) : 0.0f;
+    const float sum = group_sum(e, WG, wm);
+    if (l < NQ) p[l] = l < n ? e / sum : 0.0f;
+  }
+  __syncthreads();
+
+  // attn2: softmax over the regions of gamma1 * attn1, word by word; the
+  // NSUB rows of a word's column sums go through red in a fixed order.
+  {
+    float mx = -INFINITY;
+    if (l < n)
+      for (int s = sub; s < d.S; s += NSUB)
+        mx = fmaxf(mx, gamma1 * sP1[s * d.LP + l]);
+    red[sub * WG + l] = mx;
+    __syncthreads();
+    mx = -INFINITY;
+    for (int k = 0; k < NSUB; ++k) mx = fmaxf(mx, red[k * WG + l]);
+    __syncthreads();
+    float sum = 0.0f;
+    if (l < n)
+      for (int s = sub; s < d.S; s += NSUB) {
+        const float e = expf(gamma1 * sP1[s * d.LP + l] - mx);
+        sP2[s * d.LP + l] = e;
+        sum += e;
+      }
+    red[sub * WG + l] = sum;
+    __syncthreads();
+    sum = 0.0f;
+    for (int k = 0; k < NSUB; ++k) sum += red[k * WG + l];
+    if (l < NQ)
+      for (int s = sub; s < d.S; s += NSUB)
+        sP2[s * d.LP + l] = l < n ? sP2[s * d.LP + l] / sum : 0.0f;
+  }
+  __syncthreads();
+
+  // C = attn2^T R (0 for the padded words).
+  dr_cols<NQ>(R, sP2, sC, d);
+  __syncthreads();
+
+  // Cosines: G lanes per word.
+  {
+    const int G = kThreads / WG < 32 ? kThreads / WG : 32;
+    const int wl = tid / G;
+    const int k = tid & (G - 1);
+    if (wl < n) {
+      float wc = 0.0f, ww = 0.0f, cc = 0.0f;
+      for (int c = k; c < d.D; c += G) {
+        const float a = sW[wl * d.DP + c];
+        const float b = sC[wl * d.DP + c];
+        wc += a * b;
+        ww += a * a;
+        cc += b * b;
+      }
+      const unsigned gm = group_mask(G);
+      wc = group_sum(wc, G, gm);
+      ww = group_sum(ww, G, gm);
+      cc = group_sum(cc, G, gm);
+      if (k == 0) {
+        const float den = fmaxf(sqrtf(ww) * sqrtf(cc), kEps);
+        const float cs = wc / den;
+        st_cos[wl] = cs;
+        st_den[wl] = den;
+        st_cn2[wl] = fmaxf(cc, kEps * kEps);
+        st_row[wl] = expf(gamma2 * cs);
+      }
+    }
+  }
+  __syncthreads();
+
+  // Z = sum of the valid words' rows, in every warp; dC in place of C.
+  const float Z = warp_sum(lane < n ? st_row[lane] : 0.0f);
+  for (int k = tid; k < NQ * D4; k += kThreads) {
+    const int r = k / D4;
+    const int c = k - r * D4;
+    float4* cv = reinterpret_cast<float4*>(sC + r * d.DP + 4 * c);
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (r < n) {
+      const float dcos = g * st_row[r] * gamma2 / fmaxf(Z, kEps);
+      const float4 w = *reinterpret_cast<const float4*>(sW + r * d.DP + 4 * c);
+      const float4 cc = *cv;
+      const float den = st_den[r], cs = st_cos[r], cn2 = st_cn2[r];
+      v.x = dcos * (w.x / den - cs * cc.x / cn2);
+      v.y = dcos * (w.y / den - cs * cc.y / cn2);
+      v.z = dcos * (w.z / den - cs * cc.z / cn2);
+      v.w = dcos * (w.w / den - cs * cc.w / cn2);
+    }
+    *cv = v;
+  }
+  __syncthreads();
+
+  // da2 = R dC^T.
+  dr_rows<NQ>(R, sC, sX, d);
+  __syncthreads();
+
+  // Back through the softmax over regions: colsum_l = sum_s attn2 da2 (the
+  // same fixed-order reduction as attn2's), then per region row
+  // da1 = gamma1 attn2 (da2 - colsum) and, through the softmax over words,
+  // dA = attn1 (da1 - sum_l attn1 da1).
+  {
+    float cs = 0.0f;
+    if (l < n)
+      for (int s = sub; s < d.S; s += NSUB)
+        cs += sP2[s * d.LP + l] * sX[s * d.LP + l];
+    red[sub * WG + l] = cs;
+    __syncthreads();
+    cs = 0.0f;
+    for (int k = 0; k < NSUB; ++k) cs += red[k * WG + l];
+    for (int s = sub; s < d.S; s += NSUB) {
+      const int j = s * d.LP + l;
+      float a1 = 0.0f, da1 = 0.0f;
+      if (l < n) {
+        a1 = sP1[j];
+        da1 = gamma1 * (sP2[j] * (sX[j] - cs));
+      }
+      const float rs = group_sum(a1 * da1, WG, wm);
+      if (l < n) sX[j] = a1 * (da1 - rs);
+    }
+  }
+  __syncthreads();
+
+  // Copy out, word major: dA and attn2 (s fastest), dC.
+  for (int k = tid; k < n * d.S; k += kThreads) {
+    const int r = k / d.S;
+    const int s = k - r * d.S;
+    oA[r * d.SP + s] = sX[s * d.LP + r];
+    oG[r * d.SP + s] = sP2[s * d.LP + r];
+  }
+  for (int k = tid; k < n * D4; k += kThreads) {
+    const int r = k / D4;
+    const int c = k - r * D4;
+    reinterpret_cast<float4*>(oC + r * d.D)[c] =
+        *reinterpret_cast<const float4*>(sC + r * d.DP + 4 * c);
+  }
+}
+
+// Pass 1: grid (Bt, Bi), one block per pair; two blocks fit on an SM while
+// the shared memory allows (L <= 20 at S = 289, D = 256).
+__global__ void __launch_bounds__(kThreads, 2) damsm_dr_pair(
     const float* __restrict__ regions, const float* __restrict__ words,
     const int* __restrict__ lens, const float* __restrict__ dsim,
-    float* __restrict__ dR, int Bt, Dims d, float gamma1, float gamma2) {
-  extern __shared__ float4 smem4[];
-  float* sW = reinterpret_cast<float*>(smem4);
-  float* sC = sW + LT * d.DP;
-  float* sdC = sC + LT * d.DP;
-  float* sP1 = sdC + LT * d.DP;
-  float* sP2 = sP1 + d.S * d.LP;
-  float* sP3 = sP2 + d.S * d.LP;
-  __shared__ WordStats st;
-  const int i = blockIdx.x;
+    float* __restrict__ scratch, DrDims d, float gamma1, float gamma2) {
+  const int t = blockIdx.x;
+  const int i = blockIdx.y;
+  const int n = min(max(lens[t], 0), d.L);
+  if (n == 0) return;  // no valid word: the pair adds nothing to dR
   const float* R = regions + (int64_t)i * d.S * d.D;
-  float* out = dR + (int64_t)i * d.S * d.D;
+  const float* W = words + (int64_t)t * d.L * d.D;
+  const float g = dsim[(int64_t)i * d.Bt + t];
+  const int64_t slot = ((int64_t)i * d.Bt + t) * d.L;
+  const int64_t plane = (int64_t)d.Bi * d.Bt * d.L * d.SP;
+  float* oA = scratch + slot * d.SP;
+  float* oG = oA + plane;
+  float* oC = scratch + 2 * plane + slot * d.D;
+  switch ((n + 3) / 4) {
+#define EEGAN_DR_CASE(Q)                                                     \
+  case Q:                                                                    \
+    dr_pair<4 * Q>(R, W, n, g, gamma1, gamma2, d, oA, oG, oC);               \
+    break;
+    EEGAN_DR_CASE(1)
+    EEGAN_DR_CASE(2)
+    EEGAN_DR_CASE(3)
+    EEGAN_DR_CASE(4)
+    EEGAN_DR_CASE(5)
+    EEGAN_DR_CASE(6)
+    EEGAN_DR_CASE(7)
+    EEGAN_DR_CASE(8)
+#undef EEGAN_DR_CASE
+  }
+}
 
-  for (int t = 0; t < Bt; ++t) {
-    load_words<LT>(words, t, d, sW);
-    __syncthreads();
-    pair_forward<LT>(R, lens[t], gamma1, gamma2, d, sW, sC, sP1, sP2, st);
-    pair_backward<LT>(R, dsim[(int64_t)i * Bt + t], gamma1, gamma2, d, sW, sC,
-                      sP1, sP2, sdC, sP3, st);
-    // dR[s, c] += sum_l dA[s, l] W[l, c] + attn2[s, l] dC[l, c].
-    for (int c = threadIdx.x; c < d.D; c += kThreads) {
-      float wv[LT], dcv[LT];
+// Pass 2: grid (ceil(D/kSumD), ceil(S/64), Bi). dR[i] for a 64 x kSumD
+// tile of (s, d) = sum over the texts t in order, and over each text's valid
+// words, of dA[i,t][l, s] W[t][l, d] + attn2[i,t][l, s] dC[i,t][l, d]: a
+// product with K = 2 n_t per text, staged in shared memory ([k][s] and
+// [k][d]); a thread owns 4 x (kSumD / 16) outputs. Few registers, so several
+// blocks share an SM and hide each other's loads. Each output is written
+// once: no atomics.
+constexpr int kSumS = 64;
+constexpr int kSumD = 64;
+constexpr int kSumH = kSumD / 64;  // float4 columns of a thread
+
+__global__ void __launch_bounds__(kThreads) damsm_dr_sum(
+    const float* __restrict__ words, const int* __restrict__ lens,
+    const float* __restrict__ scratch, float* __restrict__ dR, DrDims d) {
+  __shared__ __align__(16) float sa[2 * 32][kSumS];  // [k][s]
+  __shared__ __align__(16) float sb[2 * 32][kSumD];  // [k][d]
+  const int d0 = blockIdx.x * kSumD;
+  const int s0 = blockIdx.y * kSumS;
+  const int i = blockIdx.z;
+  const int tx = threadIdx.x & 15;  // d = d0 + 4 tx + 64 h, h < kSumH
+  const int ty = threadIdx.x >> 4;  // s = s0 + 4 ty + p, p < 4
+  const int64_t plane = (int64_t)d.Bi * d.Bt * d.L * d.SP;
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  float acc[4][4 * kSumH];
 #pragma unroll
-      for (int l = 0; l < LT; ++l) {
-        wv[l] = sW[l * d.DP + c];
-        dcv[l] = sdC[l * d.DP + c];
+  for (int p = 0; p < 4; ++p)
+#pragma unroll
+    for (int q = 0; q < 4 * kSumH; ++q) acc[p][q] = 0.0f;
+
+  for (int t = 0; t < d.Bt; ++t) {
+    const int n = min(max(lens[t], 0), d.L);
+    if (n == 0) continue;
+    const int64_t slot = ((int64_t)i * d.Bt + t) * d.L;
+    const float* gA = scratch + slot * d.SP;
+    const float* gG = gA + plane;
+    const float* gC = scratch + 2 * plane + slot * d.D;
+    const float* gW = words + (int64_t)t * d.L * d.D;
+    // Row k of both tiles per step (16 float4 of sa, 16 kSumH of sb);
+    // out-of-tile addresses fall back to a row start, in bounds even if the
+    // load is issued.
+    for (int k = threadIdx.x; k < 2 * n * 16; k += kThreads) {
+      const int row = k >> 4;
+      const int c4 = 4 * (k & 15);
+      const int wrow = row < n ? row : row - n;
+      const bool oka = s0 + c4 < d.SP;
+      const float4 va = __ldg(reinterpret_cast<const float4*>(
+          (row < n ? gA : gG) + (int64_t)wrow * d.SP + (oka ? s0 + c4 : 0)));
+      float4 vb[kSumH];
+#pragma unroll
+      for (int h = 0; h < kSumH; ++h) {
+        const int dc = d0 + 64 * h + c4;
+        vb[h] = __ldg(reinterpret_cast<const float4*>(
+            (row < n ? gW : gC) + (int64_t)wrow * d.D + (dc < d.D ? dc : 0)));
       }
-      for (int s = 0; s < d.S; ++s) {
-        const float4* a = reinterpret_cast<const float4*>(sP3 + s * d.LP);
-        const float4* b = reinterpret_cast<const float4*>(sP2 + s * d.LP);
-        float v = 0.0f;
+      *reinterpret_cast<float4*>(&sa[row][c4]) = oka ? va : zero;
 #pragma unroll
-        for (int q = 0; q < LT / 4; ++q) {
-          const float4 x = a[q];
-          const float4 y = b[q];
-          v += x.x * wv[4 * q] + x.y * wv[4 * q + 1] + x.z * wv[4 * q + 2] +
-               x.w * wv[4 * q + 3];
-          v += y.x * dcv[4 * q] + y.y * dcv[4 * q + 1] + y.z * dcv[4 * q + 2] +
-               y.w * dcv[4 * q + 3];
-        }
-        float* o = out + (int64_t)s * d.D + c;
-        *o = t == 0 ? v : *o + v;
+      for (int h = 0; h < kSumH; ++h)
+        *reinterpret_cast<float4*>(&sb[row][64 * h + c4]) =
+            d0 + 64 * h + c4 < d.D ? vb[h] : zero;
+    }
+    __syncthreads();
+    for (int k = 0; k < 2 * n; ++k) {
+      const float4 a = *reinterpret_cast<const float4*>(&sa[k][4 * ty]);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+      for (int h = 0; h < kSumH; ++h) {
+        const float4 b =
+            *reinterpret_cast<const float4*>(&sb[k][64 * h + 4 * tx]);
+        const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+        for (int p = 0; p < 4; ++p)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[p][4 * h + q] += av[p] * bv[q];
       }
     }
     __syncthreads();
+  }
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const int s = s0 + 4 * ty + p;
+    if (s >= d.S) continue;
+#pragma unroll
+    for (int h = 0; h < kSumH; ++h) {
+      const int dc = d0 + 4 * tx + 64 * h;
+      if (dc < d.D)
+        *reinterpret_cast<float4*>(dR + ((int64_t)i * d.S + s) * d.D + dc) =
+            make_float4(acc[p][4 * h], acc[p][4 * h + 1], acc[p][4 * h + 2],
+                        acc[p][4 * h + 3]);
+    }
   }
 }
 
@@ -453,12 +906,15 @@ bool shape_ok(int S, int L, int D) {
   return S > 0 && L > 0 && L <= 32 && D > 0 && D <= kThreads && D % 4 == 0;
 }
 
+// The forward and dW take their dynamic shared memory from the caller
+// (ops/damsm.py:smem_bytes), which must cover smem_floats.
 template <int LT>
 cudaError_t fwd(const float* r, const float* w, const int* lens, float* sims,
-                int Bi, int Bt, int S, int L, int D, float g1, float g2,
-                cudaStream_t s) {
+                int Bi, int Bt, int S, int L, int D, size_t bytes, float g1,
+                float g2, cudaStream_t s) {
   const Dims d = make_dims(S, L, D, LT);
-  const size_t bytes = smem_floats(LT, d, 2, 1) * sizeof(float);
+  if (bytes < smem_floats(LT, d, 2, 1) * sizeof(float))
+    return cudaErrorInvalidValue;
   cudaError_t err = set_smem((const void*)damsm_words_fwd<LT>, bytes);
   if (err != cudaSuccess) return err;
   damsm_words_fwd<LT><<<dim3(Bt, Bi), kThreads, bytes, s>>>(r, w, lens, sims,
@@ -466,25 +922,37 @@ cudaError_t fwd(const float* r, const float* w, const int* lens, float* sims,
   return cudaGetLastError();
 }
 
-template <int LT>
+// The two launches of dR. The scratch (4 Bi Bt L (2 SP + D) bytes) and pass
+// 1's dynamic shared memory, which must cover dr_pair_smem_floats, come from
+// the launch plan.
 cudaError_t bwd_dr(const float* r, const float* w, const int* lens,
-                   const float* dsim, float* dR, int Bi, int Bt, int S, int L,
-                   int D, float g1, float g2, cudaStream_t s) {
-  const Dims d = make_dims(S, L, D, LT);
-  const size_t bytes = smem_floats(LT, d, 3, 3) * sizeof(float);
-  cudaError_t err = set_smem((const void*)damsm_words_bwd_dr<LT>, bytes);
+                   const float* dsim, float* dR, float* scratch, DrDims d,
+                   size_t smem_bytes, float g1, float g2, cudaStream_t s) {
+  if (d.LP < d.LT || d.LP % 4 != 0 || d.SP < d.S || d.SP % 4 != 0 ||
+      smem_bytes < dr_pair_smem_floats(d) * sizeof(float) || d.Bi > 65535)
+    return cudaErrorInvalidValue;
+  cudaError_t err = set_smem((const void*)damsm_dr_pair, smem_bytes);
   if (err != cudaSuccess) return err;
-  damsm_words_bwd_dr<LT><<<Bi, kThreads, bytes, s>>>(r, w, lens, dsim, dR, Bt,
-                                                      d, g1, g2);
+  err = cudaFuncSetAttribute((const void*)damsm_dr_pair,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  damsm_dr_pair<<<dim3(d.Bt, d.Bi), kThreads, smem_bytes, s>>>(
+      r, w, lens, dsim, scratch, d, g1, g2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid((d.D + kSumD - 1) / kSumD, (d.S + kSumS - 1) / kSumS, d.Bi);
+  damsm_dr_sum<<<grid, kThreads, 0, s>>>(w, lens, scratch, dR, d);
   return cudaGetLastError();
 }
 
 template <int LT>
 cudaError_t bwd_dw(const float* r, const float* w, const int* lens,
                    const float* dsim, float* dW, int Bi, int Bt, int S, int L,
-                   int D, float g1, float g2, cudaStream_t s) {
+                   int D, size_t bytes, float g1, float g2, cudaStream_t s) {
   const Dims d = make_dims(S, L, D, LT);
-  const size_t bytes = smem_floats(LT, d, 3, 3) * sizeof(float);
+  if (bytes < smem_floats(LT, d, 3, 3) * sizeof(float))
+    return cudaErrorInvalidValue;
   cudaError_t err = set_smem((const void*)damsm_words_bwd_dw<LT>, bytes);
   if (err != cudaSuccess) return err;
   damsm_words_bwd_dw<LT><<<Bt, kThreads, bytes, s>>>(r, w, lens, dsim, dW, Bi,
@@ -502,52 +970,50 @@ cudaError_t bwd_dw(const float* r, const float* w, const int* lens,
   return FN<32>(__VA_ARGS__);
 
 // All float32 and contiguous: regions (Bi,S,D), words (Bt,L,D), lens (Bt,)
-// int32, sims and dsim (Bi,Bt), dR (Bi,S,D), dW (Bt,L,D).
+// int32, sims and dsim (Bi,Bt), dR (Bi,S,D), dW (Bt,L,D). smem_bytes is the
+// dynamic shared memory of a block, from the launch plan.
 extern "C" int eegan_damsm_words_fwd(const void* regions, const void* words,
                                      const void* lens, void* sims, int Bi,
-                                     int Bt, int S, int L, int D, float gamma1,
+                                     int Bt, int S, int L, int D,
+                                     long long smem_bytes, float gamma1,
                                      float gamma2, void* stream) {
   EEGAN_DAMSM_DISPATCH(fwd, static_cast<const float*>(regions),
                        static_cast<const float*>(words),
                        static_cast<const int*>(lens),
-                       static_cast<float*>(sims), Bi, Bt, S, L, D, gamma1,
-                       gamma2, static_cast<cudaStream_t>(stream))
+                       static_cast<float*>(sims), Bi, Bt, S, L, D,
+                       (size_t)smem_bytes, gamma1, gamma2,
+                       static_cast<cudaStream_t>(stream))
 }
 
+// dR: scratch is float32 of 4 Bi Bt L (2 SP + D) bytes; LP, SP and
+// smem_bytes are the launch plan's.
 extern "C" int eegan_damsm_words_bwd_dr(const void* regions, const void* words,
                                         const void* lens, const void* dsim,
-                                        void* dR, int Bi, int Bt, int S, int L,
-                                        int D, float gamma1, float gamma2,
+                                        void* dR, void* scratch, int Bi,
+                                        int Bt, int S, int L, int D, int LP,
+                                        int SP, long long smem_bytes,
+                                        float gamma1, float gamma2,
                                         void* stream) {
-  EEGAN_DAMSM_DISPATCH(bwd_dr, static_cast<const float*>(regions),
-                       static_cast<const float*>(words),
-                       static_cast<const int*>(lens),
-                       static_cast<const float*>(dsim),
-                       static_cast<float*>(dR), Bi, Bt, S, L, D, gamma1,
-                       gamma2, static_cast<cudaStream_t>(stream))
+  if (!shape_ok(S, L, D) || Bi <= 0 || Bt <= 0) return cudaErrorInvalidValue;
+  const DrDims d = make_dr_dims(Bi, Bt, S, L, D, LP, SP);
+  return bwd_dr(static_cast<const float*>(regions),
+                static_cast<const float*>(words), static_cast<const int*>(lens),
+                static_cast<const float*>(dsim), static_cast<float*>(dR),
+                static_cast<float*>(scratch), d, (size_t)smem_bytes, gamma1,
+                gamma2, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int eegan_damsm_words_bwd_dw(const void* regions, const void* words,
                                         const void* lens, const void* dsim,
                                         void* dW, int Bi, int Bt, int S, int L,
-                                        int D, float gamma1, float gamma2,
+                                        int D, long long smem_bytes,
+                                        float gamma1, float gamma2,
                                         void* stream) {
   EEGAN_DAMSM_DISPATCH(bwd_dw, static_cast<const float*>(regions),
                        static_cast<const float*>(words),
                        static_cast<const int*>(lens),
                        static_cast<const float*>(dsim),
-                       static_cast<float*>(dW), Bi, Bt, S, L, D, gamma1,
-                       gamma2, static_cast<cudaStream_t>(stream))
-}
-
-// Dynamic shared memory, in bytes, that a launch of the forward (kind 0) or
-// a backward pass (kind 1) needs at these shapes; the wrapper checks it
-// against the card's per-block limit before launching.
-extern "C" long long eegan_damsm_words_smem_bytes(int kind, int S, int L,
-                                                  int D) {
-  const int LT = L <= 8 ? 8 : L <= 16 ? 16 : L <= 24 ? 24 : 32;
-  const Dims d = make_dims(S, L, D, LT);
-  const size_t floats = kind == 0 ? smem_floats(LT, d, 2, 1)
-                                  : smem_floats(LT, d, 3, 3);
-  return (long long)(floats * sizeof(float));
+                       static_cast<float*>(dW), Bi, Bt, S, L, D,
+                       (size_t)smem_bytes, gamma1, gamma2,
+                       static_cast<cudaStream_t>(stream))
 }

@@ -18,6 +18,9 @@ words loss contrasts (reference hot spot `miscc/DAMSM_losses.py:272-342`).
   contrastive CE over that grid, a drop-in for ``losses.damsm.words_loss``.
 * ``words_similarity_forward.launches``, ``words_similarity_backward_dr
   .launches`` and ``words_similarity_backward_dw.launches`` count launches.
+* :func:`dr_launch_plan` and :func:`smem_bytes` are the kernels' launch
+  plans and shared-memory layouts, plain Python that the CPU tests reach;
+  the C side only checks that a plan covers its layout.
 
 Everything is float32: regions (Bi, S, D) or (Bi, 17, 17, D), words
 (Bt, L, D), cap_lens (Bt,) integers.
@@ -39,6 +42,58 @@ from eegan_tpu_torch.losses.damsm import (
 from eegan_tpu_torch.ops import _build
 
 _SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block may use (Hopper)
+_SM_SMEM = 228 * 1024  # shared memory of one SM (Hopper)
+_THREADS = 256
+_SUM_TILE = (64, 64)  # damsm_dr_sum's (S, D) output tile
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def smem_bytes(kind: str, S: int, L: int, D: int) -> int:
+    """Dynamic shared memory of one block of the forward (``"fwd"``) or dW
+    (``"dw"``) kernel: (LT, D + 4) tiles of words and contexts (two; dW also
+    dC) and (S, LT + 4) grids of probabilities (one; dW three), float32,
+    with LT = L rounded up to 8, 16, 24 or 32 (the kernels' template)."""
+    LT = min(_round_up(L, 8), 32)
+    tiles, grids = {"fwd": (2, 1), "dw": (3, 3)}[kind]
+    return 4 * (tiles * LT * (D + 4) + grids * S * (LT + 4))
+
+
+def dr_launch_plan(Bi: int, Bt: int, S: int, L: int, D: int) -> dict:
+    """The two launches of kernel 4 (dR) at these shapes.
+
+    Pass 1, ``damsm_dr_pair``: one block per (text, image) pair; it writes
+    the pair's dA and attn2 (word-major planes of SP floats) and dC (rows of
+    D) to a float32 scratch. Pass 2, ``damsm_dr_sum``: one block per image
+    and 64 x 64 tile of (S, D) sums the texts in index order (within a
+    text the dA W terms of its valid words, then the attn2 dC terms).
+    Raises ValueError for shapes the kernels do not take.
+    """
+    if min(Bi, Bt, S, L, D) <= 0 or L > 32 or D % 4 or D > _THREADS:
+        raise ValueError(f"dR takes 0 < L <= 32, D % 4 == 0, 0 < D <= "
+                         f"{_THREADS}; got Bi={Bi}, Bt={Bt}, S={S}, L={L}, "
+                         f"D={D}")
+    if Bi > 65535:
+        raise ValueError(f"dR takes at most 65535 images, got {Bi}")
+    LT = _round_up(L, 4)
+    # A stride of 4 mod 8 floats spreads a grid column over 8 banks (the
+    # copy-out reads grids column-wise).
+    LP = LT if LT % 8 == 4 else LT + 4
+    SP = _round_up(S, 4)
+    smem = 4 * (2 * LT * (D + 4) + 3 * S * LP + _THREADS + 4 * 32)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"dR pass 1 needs {smem} bytes of shared memory at "
+                         f"S={S}, L={L}, D={D} (limit {_SMEM_LIMIT})")
+    sum_grid = (-(-D // _SUM_TILE[1]), -(-S // _SUM_TILE[0]), Bi)
+    return dict(
+        threads=_THREADS, LP=LP, SP=SP,
+        pair_grid=(Bt, Bi), pair_blocks=Bt * Bi,
+        pair_smem_bytes=smem,
+        pair_blocks_per_sm=min(2, _SM_SMEM // (smem + 1024)),
+        sum_grid=sum_grid, sum_blocks=sum_grid[0] * sum_grid[1] * Bi,
+        scratch_bytes=4 * Bi * Bt * L * (2 * SP + D))
 
 
 def words_similarity_reference(regions, words, cap_lens, gamma1: float = 5.0,
@@ -52,11 +107,12 @@ def _lib():
     lib = _build.load("damsm_words")
     if lib.eegan_damsm_words_fwd.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.eegan_damsm_words_fwd.argtypes = [p] * 4 + [i] * 5 + [f, f, p]
-        for name in ("eegan_damsm_words_bwd_dr", "eegan_damsm_words_bwd_dw"):
-            getattr(lib, name).argtypes = [p] * 5 + [i] * 5 + [f, f, p]
-        lib.eegan_damsm_words_smem_bytes.argtypes = [i] * 4
-        lib.eegan_damsm_words_smem_bytes.restype = ctypes.c_longlong
+        n = ctypes.c_longlong
+        lib.eegan_damsm_words_fwd.argtypes = [p] * 4 + [i] * 5 + [n, f, f, p]
+        lib.eegan_damsm_words_bwd_dr.argtypes = (
+            [p] * 6 + [i] * 7 + [n, f, f, p])
+        lib.eegan_damsm_words_bwd_dw.argtypes = [p] * 5 + [i] * 5 + [n, f, f,
+                                                                     p]
         for name in ("eegan_damsm_words_fwd", "eegan_damsm_words_bwd_dr",
                      "eegan_damsm_words_bwd_dw"):
             getattr(lib, name).restype = ctypes.c_int
@@ -91,15 +147,20 @@ def _prepare(regions, words, cap_lens):
     if D % 4 or D > 256 or L > 32 or min(Bi, Bt, S, L) == 0:
         raise ValueError(f"the DAMSM kernels take D % 4 == 0, D <= 256, "
                          f"0 < L <= 32; got S={S}, L={L}, D={D}")
-    lib = _lib()
-    for kind in (0, 1):
-        need = lib.eegan_damsm_words_smem_bytes(kind, S, L, D)
-        if need > _SMEM_LIMIT:
-            raise ValueError(f"S={S}, L={L}, D={D} needs {need} bytes of "
-                             f"shared memory per block (limit {_SMEM_LIMIT})")
     lens = cap_lens.to(regions.device, torch.int32).contiguous()
-    return (regions.contiguous(), words.contiguous(), lens,
-            (Bi, Bt, S, L, D), lib)
+    # The kernels read rows as float4: a view that starts off a 16-byte
+    # boundary is copied.
+    regions, words = (t if t.data_ptr() % 16 == 0 else t.clone()
+                      for t in (regions.contiguous(), words.contiguous()))
+    return regions, words, lens, (Bi, Bt, S, L, D), _lib()
+
+
+def _smem_checked(kind: str, S: int, L: int, D: int) -> int:
+    need = smem_bytes(kind, S, L, D)
+    if need > _SMEM_LIMIT:
+        raise ValueError(f"S={S}, L={L}, D={D} needs {need} bytes of shared "
+                         f"memory per block (limit {_SMEM_LIMIT})")
+    return need
 
 
 def _check_err(err: int, what: str) -> None:
@@ -111,11 +172,12 @@ def words_similarity_forward(regions, words, cap_lens, gamma1: float = 5.0,
                              gamma2: float = 5.0) -> torch.Tensor:
     """Kernel 3: the (Bi, Bt) log-similarity grid. CUDA tensors only."""
     r, w, lens, (Bi, Bt, S, L, D), lib = _prepare(regions, words, cap_lens)
+    smem = _smem_checked("fwd", S, L, D)
     sims = torch.empty((Bi, Bt), dtype=torch.float32, device=r.device)
     with torch.cuda.device(r.device):
         err = lib.eegan_damsm_words_fwd(
             r.data_ptr(), w.data_ptr(), lens.data_ptr(), sims.data_ptr(),
-            Bi, Bt, S, L, D, float(gamma1), float(gamma2),
+            Bi, Bt, S, L, D, smem, float(gamma1), float(gamma2),
             torch.cuda.current_stream(r.device).cuda_stream)
     _check_err(err, "damsm_words_fwd")
     words_similarity_forward.launches += 1
@@ -130,18 +192,31 @@ def _backward(kind: str, regions, words, cap_lens, dsim, gamma1, gamma2):
     g = dsim.to(r.device, torch.float32).contiguous()
     out = torch.empty(r.shape if kind == "dr" else w.shape,
                       dtype=torch.float32, device=r.device)
-    fn = getattr(lib, f"eegan_damsm_words_bwd_{kind}")
+    stream = torch.cuda.current_stream(r.device).cuda_stream
     with torch.cuda.device(r.device):
-        err = fn(r.data_ptr(), w.data_ptr(), lens.data_ptr(), g.data_ptr(),
-                 out.data_ptr(), Bi, Bt, S, L, D, float(gamma1),
-                 float(gamma2), torch.cuda.current_stream(r.device).cuda_stream)
+        if kind == "dr":
+            plan = dr_launch_plan(Bi, Bt, S, L, D)
+            scratch = torch.empty(plan["scratch_bytes"] // 4,
+                                  dtype=torch.float32, device=r.device)
+            err = lib.eegan_damsm_words_bwd_dr(
+                r.data_ptr(), w.data_ptr(), lens.data_ptr(), g.data_ptr(),
+                out.data_ptr(), scratch.data_ptr(), Bi, Bt, S, L, D,
+                plan["LP"], plan["SP"], plan["pair_smem_bytes"],
+                float(gamma1), float(gamma2), stream)
+        else:
+            err = lib.eegan_damsm_words_bwd_dw(
+                r.data_ptr(), w.data_ptr(), lens.data_ptr(), g.data_ptr(),
+                out.data_ptr(), Bi, Bt, S, L, D,
+                _smem_checked("dw", S, L, D), float(gamma1), float(gamma2),
+                stream)
     _check_err(err, f"damsm_words_bwd_{kind}")
     return out
 
 
 def words_similarity_backward_dr(regions, words, cap_lens, dsim,
                                  gamma1: float = 5.0, gamma2: float = 5.0):
-    """Kernel 4: the regions' gradient (Bi, S, D) from dsim (Bi, Bt)."""
+    """Kernel 4: the regions' gradient (Bi, S, D) from dsim (Bi, Bt), in
+    the two launches of :func:`dr_launch_plan` (counted as one)."""
     out = _backward("dr", regions, words, cap_lens, dsim, gamma1, gamma2)
     words_similarity_backward_dr.launches += 1
     return out
