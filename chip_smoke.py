@@ -7,10 +7,13 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
 
 1. environment: torch/CUDA versions and the card's name and power limit;
 2. build every CUDA source of the port with nvcc (all started together);
-3. each kernel against its plain PyTorch version on the card, at the
-   shapes the sampling path gives it (B=8, cfg/sample_bird.yml widths) and
-   ragged shapes with every input/output dtype pair: float32 out within
-   1e-5, bfloat16 out within one bf16 ulp (rtol = atol = 8e-3);
+3. the affine forward against its plain PyTorch version on the card, at
+   the shapes the sampling path (B=8, cfg/sample_bird.yml widths) and the
+   train step (B=32, cfg/bird.yml) give it, at ragged shapes with every
+   input/output dtype pair and with misaligned operands: float32 out within
+   1e-5, bfloat16 out within one bf16 ulp (rtol = atol = 8e-3), bitwise the
+   same in two launches; the ReLU zeros at float32 out that differ from the
+   plain version's are counted;
 4. the sampling step (text encoder -> AttrEnhance -> Generator) at full
    width (cfg/sample_bird.yml, GF_DIM=48, B=8, RUNTIME.PALLAS_AFFINE=true)
    with random weights and BN running stats from a seed: float32 on cuda
@@ -38,10 +41,11 @@ sampling phases:
 9. the DAMSM forward, dR and dW kernels against the plain version and its
    autograd at (Bi, Bt, S, L, D) = (32, 32, 289, 20, 256), (5, 3, 37, 7, 64)
    and (4, 4, 289, 20, 256) with a class mask; dW exactly 0 at padded words;
-   dR also at shapes that stress its split (an odd Bi, Bt = 1, L = 1, every
-   text at full length, one-word texts beside full ones, L = 32), and
-   bitwise the same in two launches; the gradients within 1e-4 of each
-   case's largest |gradient| plus 2e-3 relative;
+   the forward and dR also at shapes that stress their per-pair split (an
+   odd Bi, Bt = 1, L = 1, every text at full length, one-word texts beside
+   full ones, L = 32, a text with no valid word), and bitwise the same in
+   two launches; the sims within 1e-3 + 1e-4 relative, the gradients within
+   1e-4 of each case's largest |gradient| plus 2e-3 relative;
 10. the float32 train step on cuda (TF32 off) against the same step on the
    CPU, full width, B=4, same weights, batch and noise: metrics, updated
    parameters and the kernel launches per step (14 / 14 / 1 / 1 / 0);
@@ -213,7 +217,21 @@ def time_host(fn, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
-def phase_kernel_vs_plain(ngf: int):
+def misaligned_copy(t):
+    """A copy of ``t`` in the same memory format whose data starts one
+    element past a 16-byte boundary (a view into a larger buffer)."""
+    import torch
+
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    if t.dim() == 4 and t.shape[1] > 1:  # NCHW in channels_last memory
+        B, C, H, W = t.shape
+        v = buf[1:].view(B, H, W, C).permute(0, 3, 1, 2)
+    else:
+        v = buf[1:].view(t.shape)
+    return v.copy_(t)
+
+
+def phase_kernel_vs_plain(ngf: int, train_ngf: int):
     import torch
 
     from eegan_tpu_torch.ops.affine import (
@@ -223,19 +241,34 @@ def phase_kernel_vs_plain(ngf: int):
 
     f32, bf16 = torch.float32, torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    # The path's shapes with the path's dtype pairs (in = out); the ragged
-    # shapes (C not a multiple of the vector width) with every pair.
-    cases = [(site, BATCH, C, h, w, up, dt, dt)
+    saved = read_counts()
+    # The two paths' shapes (sampling B=8, train step B=32) with the path's
+    # dtype pairs (in = out); the ragged shapes (C not a multiple of the
+    # vector width, C / vec above 256 lanes) with every pair; x and mask one
+    # element off a 16-byte boundary (the vector width 1 path, a mask copy).
+    cases = [(site, BATCH, C, h, w, up, dt, dt, False)
              for site, C, h, w, up in affine_launch_shapes(ngf)
              for dt in (f32, bf16)]
-    cases += [("ragged", B, C, h, w, up, dt_in, dt_out)
+    cases += [(f"train {site}", TRAIN_BATCH, C, h, w, up, dt, dt, False)
+              for site, C, h, w, up in affine_launch_shapes(train_ngf)
+              for dt in (f32, bf16)]
+    cases += [("ragged", B, C, h, w, up, dt_in, dt_out, False)
               for B, C, h, w, up in ((3, 40, 5, 7, False), (3, 40, 5, 7, True),
-                                     (2, 37, 3, 5, True))
+                                     (2, 37, 3, 5, True), (3, 8, 5, 7, False),
+                                     (2, 511, 3, 5, False),
+                                     (2, 511, 3, 5, True))
               for dt_in in (f32, bf16) for dt_out in (f32, bf16)]
+    cases += [("misaligned", 3, 64, 6, 5, up, dt, dt, True)
+              for up in (False, True) for dt in (f32, bf16)]
     worst = {f32: 0.0, bf16: 0.0}
-    for site, B, C, h, w, up, dt_in, dt_out in cases:
+    zeros_differ = 0  # ReLU zeros of the kernel not the plain version's
+    for site, B, C, h, w, up, dt_in, dt_out, off in cases:
         ops = affine_operands(B, C, h, w, up, dt_in, gen)
+        if off:
+            ops = (misaligned_copy(ops[0]), *ops[1:5],
+                   misaligned_copy(ops[5]))
         got = affine_mask_relu(*ops, up, 1e-5, dt_out)
+        again = affine_mask_relu(*ops, up, 1e-5, dt_out)
         want = affine_mask_relu_reference(*ops, up, 1e-5, dt_out)
         torch.cuda.synchronize()
         what = f"affine {site} {tuple(ops[0].shape)} up={up} {dt_in}->{dt_out}"
@@ -243,15 +276,23 @@ def phase_kernel_vs_plain(ngf: int):
             fail(f"{what}: got {tuple(got.shape)} {got.dtype}")
         if not got.is_contiguous(memory_format=torch.channels_last):
             fail(f"{what}: output not channels_last")
+        if not torch.equal(got, again):
+            fail(f"{what}: differs between two launches on the same inputs")
         err = (got.float() - want.float()).abs()
         tol = 1e-5 if dt_out == f32 else 8e-3 + 8e-3 * want.float().abs()
         if not bool((err <= tol).all()):
             fail(f"{what}: max abs err {float(err.max())}")
         worst[dt_out] = max(worst[dt_out], float(err.max()))
+        if dt_out == f32:
+            zeros_differ += int(((got == 0) != (want == 0)).sum())
+        del ops, got, again, want, err
+    set_counts(saved)  # comparison launches are not the path's
     log(f"phase 3 ok: affine_mask_relu matches its plain version in "
-        f"{len(cases)} cases; max abs err f32 out {worst[f32]}, bf16 out "
-        f"{worst[bf16]}")
-    return worst[f32], worst[bf16]
+        f"{len(cases)} cases (sampling B={BATCH}, train B={TRAIN_BATCH}, "
+        f"ragged, misaligned), bitwise the same in two launches; max abs "
+        f"err f32 out {worst[f32]}, bf16 out {worst[bf16]}; ReLU zeros that "
+        f"differ from the plain version's at float32 out: {zeros_differ}")
+    return worst[f32], worst[bf16], zeros_differ
 
 
 def slice_config(dtype: str, pallas: bool = True):
@@ -550,12 +591,14 @@ PARITY_BATCH = 4  # the float32 cuda-vs-CPU step
 BF16_STEPS = 3
 DAMSM_SHAPES = ((32, 32, 289, 20, 256), (5, 3, 37, 7, 64),
                 (4, 4, 289, 20, 256))  # (Bi, Bt, S, L, D)
-# dR at shapes that stress its split (an odd Bi, one text, one word, every
-# text at full length, one-word texts beside full ones), with the lengths
-# ("full", "mixed" or random).
+# The forward and dR at shapes that stress their per-pair split (an odd Bi,
+# one text, one word, every text at full length, one-word texts beside full
+# ones, L = 32, a text with no valid word), with the lengths ("full",
+# "mixed", "empty" or random).
 DR_STRESS = (((7, 5, 289, 20, 256), None), ((5, 1, 289, 20, 256), None),
              ((3, 4, 37, 1, 64), None), ((4, 6, 289, 20, 256), "full"),
-             ((6, 6, 289, 20, 256), "mixed"), ((3, 3, 289, 32, 256), None))
+             ((6, 6, 289, 20, 256), "mixed"), ((3, 3, 289, 32, 256), None),
+             ((5, 4, 289, 20, 256), "empty"))
 
 
 def bird_config(dtype: str):
@@ -702,6 +745,13 @@ def phase_damsm_kernels():
         if not bool((got[1][pad] == 0).all()):
             fail(f"{what}: dW not exactly zero at padded words")
 
+    def check_sims(what, got, want):
+        err = (got - want).abs()
+        if got.shape != want.shape or not bool(
+                (err <= 1e-3 + 1e-4 * want.abs()).all()):
+            fail(f"{what}: sims max abs err {float(err.max())}")
+        worst["sims"] = max(worst["sims"], float(err.max()))
+
     for (Bi, Bt, S, L, D), use_cls in zip(DAMSM_SHAPES,
                                           (False, False, True)):
         regions, words, lens, cls = damsm_operands(Bi, Bt, S, L, D, gen)
@@ -711,11 +761,7 @@ def phase_damsm_kernels():
         w = words.detach().requires_grad_(True)
         want = words_similarity_reference(r, w, lens)
         torch.cuda.synchronize()
-        err = (got - want.detach()).abs()
-        if got.shape != (Bi, Bt) or not bool(
-                (err <= 1e-3 + 1e-4 * want.detach().abs()).all()):
-            fail(f"{what}: sims max abs err {float(err.max())}")
-        worst["sims"] = max(worst["sims"], float(err.max()))
+        check_sims(what, got, want.detach())
 
         dsim = torch.randn((Bi, Bt), generator=gen, device="cuda") / Bi
         got = (words_similarity_backward_dr(regions, words, lens, dsim),
@@ -741,24 +787,34 @@ def phase_damsm_kernels():
         elif kind == "mixed":
             lens = torch.tensor([1, L] * (Bt // 2) + [1] * (Bt % 2),
                                 device="cuda")
+        elif kind == "empty":
+            lens = torch.tensor([0, L] + [max(1, L // 3)] * (Bt - 2),
+                                device="cuda")
         regions, words, lens, _ = damsm_operands(Bi, Bt, S, L, D, gen, lens)
         dsim = torch.randn((Bi, Bt), generator=gen, device="cuda") / Bi
+        sims = words_similarity_forward(regions, words, lens)
+        sims_again = words_similarity_forward(regions, words, lens)
         got = words_similarity_backward_dr(regions, words, lens, dsim)
         again = words_similarity_backward_dr(regions, words, lens, dsim)
         r = regions.detach().requires_grad_(True)
-        want = torch.autograd.grad(
-            words_similarity_reference(r, words, lens), r, dsim)[0]
+        want_sims = words_similarity_reference(r, words, lens)
+        want = torch.autograd.grad(want_sims, r, dsim)[0]
         torch.cuda.synchronize()
-        what = f"damsm dR {(Bi, Bt, S, L, D)} lengths {kind or 'random'}"
+        what = f"damsm {(Bi, Bt, S, L, D)} lengths {kind or 'random'}"
+        check_sims(what, sims, want_sims.detach())
+        if not torch.equal(sims, sims_again):
+            fail(f"{what}: sims differ between two launches on the same "
+                 f"inputs")
         check_grad(what, "d_regions", got, want)
         if not torch.equal(got, again):
             fail(f"{what}: dR differs between two launches on the same "
                  f"inputs")
     set_counts(saved)
     log(f"phase 9 ok: DAMSM kernels match the plain version at "
-        f"{DAMSM_SHAPES}, dR also at {[s for s, _ in DR_STRESS]} and "
-        f"bitwise the same in two launches; max abs err {worst}, over the "
-        f"case's largest |gradient| {worst_rel}; padded words get dW == 0")
+        f"{DAMSM_SHAPES}, the forward and dR also at "
+        f"{[(s, k or 'random') for s, k in DR_STRESS]} and bitwise the same "
+        f"in two launches; max abs err {worst}, over the case's largest "
+        f"|gradient| {worst_rel}; padded words get dW == 0")
     return dict(worst, **{f"{k}_over_scale": v for k, v in worst_rel.items()})
 
 
@@ -1085,7 +1141,7 @@ def main() -> None:
 
     ngf = fresh_config(os.path.join(ROOT, "cfg", "sample_bird.yml")).GAN.GF_DIM
     train_ngf = bird_config("float32").GAN.GF_DIM
-    err_f32, err_bf16 = phase_kernel_vs_plain(ngf)
+    err_f32, err_bf16, zeros_differ = phase_kernel_vs_plain(ngf, train_ngf)
     bwd_err = phase_affine_backward(train_ngf)
     damsm_err = phase_damsm_kernels()
     parity = phase_train_parity()
@@ -1118,6 +1174,7 @@ def main() -> None:
                "bf16_train_metrics": bf16_train["metrics"],
                "checks": {"affine_max_abs_err": {"float32": err_f32,
                                                  "bfloat16": err_bf16},
+                          "affine_relu_zeros_differ_f32": zeros_differ,
                           "affine_backward_max_abs_err": bwd_err,
                           "damsm_max_abs_err": damsm_err,
                           "sample_slice": slice_result},
@@ -1146,6 +1203,7 @@ def main() -> None:
          "launches": launches["affine_mask_relu"],
          "launches_sample_step": slice_result["launches"],
          "max_abs_err": err_f32, "max_abs_err_bf16": err_bf16,
+         "relu_zeros_differ_f32": zeros_differ,
          "ms": sum(r["ms"] for r in rows),
          "plain_ms": sum(r["plain_ms"] for r in rows),
          "bound_ms": sum(r["bound_ms"] for r in rows),

@@ -1,0 +1,194 @@
+#!/usr/bin/env python3
+"""Time variants of two of the port's CUDA kernels on one NVIDIA GPU.
+
+    python3 chip_variants.py        # from the repository root, one CUDA card
+
+Each variant is an edited copy of a ``csrc/*.cu`` source (text
+substitutions), built with the port's nvcc flags, all at once, into
+``build/variants/`` and loaded with ``ctypes``:
+
+* kernel 1, the affine forward (``affine_mask_relu.cu``): pixels per step
+  and blocks per SM, at the 14 sites of one generator forward of
+  ``cfg/bird.yml`` (B=32) and ``cfg/sample_bird.yml`` (B=8), bf16; every
+  variant must give the committed kernel's bits;
+* kernel 3, the DAMSM forward (``damsm_words.cu``) at the train shape:
+  three blocks per SM, and copies with one product or both removed, whose
+  times give each product's share (their sims are wrong by design).
+
+Times are ``chip_smoke.time_cuda``'s (L2 flushed, median of 25). Prints
+nvcc's registers and spills of each variant's kernels, one JSON line of
+results, and the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import os
+import re
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+OUT = os.path.join(ROOT, "build", "variants")
+
+UNROLL = "  return up ? 1 : (v <= 4 ? 4 : 2);"
+BLOCKS = "constexpr int kBlocksPerSm = 4;"
+FWD_BOUNDS = "__global__ void __launch_bounds__(kThreads, 2) damsm_words_fwd("
+A_PRODUCT = "  // A = R W^T.\n  dr_rows<NQ>(R, sW, sP1, d);"
+C_PRODUCT = "  // C = attn2^T R (0 for the padded words).\n  dr_cols<NQ>(R, sP2, sC, d);"
+
+# name -> (substitutions, pixels per step (up, vec), blocks per SM)
+AFFINE = {
+    "committed": ([], lambda up, v: 1 if up else (4 if v <= 4 else 2), 4),
+    "more_pixels": ([(UNROLL, "  return up ? 2 : 4;")],
+                    lambda up, v: 2 if up else 4, 4),
+    "more_pixels_two_blocks": (
+        [(UNROLL, "  return up ? 2 : 4;"),
+         (BLOCKS, "constexpr int kBlocksPerSm = 2;")],
+        lambda up, v: 2 if up else 4, 2),
+    "two_blocks": ([(BLOCKS, "constexpr int kBlocksPerSm = 2;")],
+                   lambda up, v: 1 if up else (4 if v <= 4 else 2), 2),
+}
+DAMSM = {
+    "committed": [],
+    "three_blocks": [(FWD_BOUNDS, FWD_BOUNDS.replace("2)", "3)"))],
+    "no_C_product": [(C_PRODUCT, "")],
+    "no_A_product": [(A_PRODUCT, "")],
+    "no_products": [(A_PRODUCT, ""), (C_PRODUCT, "")],
+}
+
+
+def build_all(build):
+    """Writes and builds every variant; returns name -> (library, ptxas
+    lines of the kernels that matter)."""
+    os.makedirs(OUT, exist_ok=True)
+    jobs = {}
+    for src, variants in (("affine_mask_relu", AFFINE), ("damsm_words", DAMSM)):
+        text = open(os.path.join(build.CSRC, f"{src}.cu")).read()
+        for name, spec in variants.items():
+            subs = spec[0] if src == "affine_mask_relu" else spec
+            body = text
+            for old, new in subs:
+                if old not in body:
+                    raise RuntimeError(f"{src} {name}: {old!r} not found")
+                body = body.replace(old, new)
+            tag = f"{src}.{name}"
+            cu = os.path.join(OUT, f"{tag}.cu")
+            with open(cu, "w") as f:
+                f.write(body)
+            so = os.path.join(OUT, f"{tag}.so")
+            cmd = [build.nvcc(), *build.NVCC_FLAGS, f"-I{build.CSRC}", "-o",
+                   so, cu]
+            jobs[tag] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True),
+                         so)
+    built = {}
+    for tag, (proc, so) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {tag}:\n{log}")
+        entry, lines = "", []
+        for ln in log.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", ln)
+            if m:
+                entry = m.group(1)
+            elif ("registers" in ln or "spill" in ln) and (
+                    "affine_fwd" in entry or "damsm_words_fwd" in entry):
+                lines.append(f"{entry[-40:]}: {ln.strip()}")
+        built[tag] = (ctypes.CDLL(so), lines)
+    return built
+
+
+def time_affine(built, cs, affine, torch, flush, gen):
+    """Sum of the per-launch times over the 14 sites, per path."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    dt = torch.bfloat16
+    totals = {}
+    for path, B, ngf in (("train", 32, 32), ("sampling", 8, 48)):
+        for site, C, h, w, up in cs.affine_launch_shapes(ngf):
+            ops = cs.affine_operands(B, C, h, w, up, dt, gen)
+            want = affine.affine_mask_relu_reference(*ops, up, 1e-5, dt)
+            H, W = (2 * h, 2 * w) if up else (h, w)
+            for name, (_, unroll_of, per_sm) in AFFINE.items():
+                fn = built[f"affine_mask_relu.{name}"][0].eegan_affine_mask_relu_fwd
+                fn.argtypes = [p] * 7 + [i] * 5 + [ctypes.c_float] + [i] * 7 + [p]
+                fn.restype = ctypes.c_int
+                vec = 8  # every site's C is a multiple of 8 bf16
+                lanes = min(C // vec, 256)
+                unroll = unroll_of(up, vec)
+                steps = -(-h * w // (256 // lanes * unroll))
+                nblk = affine._blocks_per_sample(B, steps, per_sm * affine._SMS)
+                out = torch.empty((B, C, H, W), dtype=dt, device="cuda",
+                                  memory_format=torch.channels_last)
+                ptrs = [t.data_ptr() for t in (*ops, out)]
+
+                def run():
+                    err = fn(*ptrs, B, h, w, C, int(up), 1e-5, 1, 1, vec,
+                             lanes, 1, nblk, unroll,
+                             torch.cuda.current_stream().cuda_stream)
+                    if err:
+                        raise RuntimeError(f"{name} {site}: CUDA error {err}")
+                ms = cs.time_cuda(run, flush)
+                torch.cuda.synchronize()
+                if not torch.equal(out, want):
+                    raise RuntimeError(f"{name} {site}: not the plain bits")
+                key = f"{path}/{name}"
+                totals[key] = totals.get(key, 0.0) + ms
+    return totals
+
+
+def time_damsm(built, cs, damsm, torch, flush, gen):
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    Bi, Bt, S, L, D = cs.DAMSM_SHAPES[0]
+    regions, words, lens, _ = cs.damsm_operands(Bi, Bt, S, L, D, gen)
+    lens = lens.to(torch.int32)
+    plan = damsm.fwd_launch_plan(Bi, Bt, S, L, D)
+    want = damsm.words_similarity_reference(regions, words, lens)
+    result = {}
+    for name in DAMSM:
+        fn = built[f"damsm_words.{name}"][0].eegan_damsm_words_fwd
+        fn.argtypes = [p] * 4 + [i] * 6 + [ctypes.c_longlong, f, f, p]
+        fn.restype = ctypes.c_int
+        sims = torch.empty((Bi, Bt), device="cuda")
+
+        def run():
+            err = fn(regions.data_ptr(), words.data_ptr(), lens.data_ptr(),
+                     sims.data_ptr(), Bi, Bt, S, L, D, plan["LP"],
+                     plan["smem_bytes"], 5.0, 5.0,
+                     torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"{name}: CUDA error {err}")
+        ms = cs.time_cuda(run, flush)
+        torch.cuda.synchronize()
+        result[name] = dict(ms=ms, sims_max_abs_err=float(
+            (sims - want).abs().max()))
+    return result
+
+
+def main() -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_variants: FAIL: this script needs a GPU", file=sys.stderr)
+        sys.exit(1)
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from eegan_tpu_torch.ops import _build, affine, damsm
+
+    built = build_all(_build)
+    for tag, (_, lines) in built.items():
+        for ln in lines:
+            print(f"ptxas {tag} {ln}")
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 17)
+    result = dict(
+        affine_forward_ms=time_affine(built, cs, affine, torch, flush, gen),
+        damsm_forward=time_damsm(built, cs, damsm, torch, flush, gen),
+        gpu=torch.cuda.get_device_name(0))
+    print(json.dumps(result))
+    print(cs.nvidia_smi())
+
+
+if __name__ == "__main__":
+    main()

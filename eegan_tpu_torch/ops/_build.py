@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 into ``build/eegan_tpu_torch/<name>-<hash>.so`` at the repository root, at
-first use (the hash covers the source and the flags, so an edited source
-rebuilds and an unchanged one is reused). Nothing is compiled when a module
+first use (the hash covers the source, the shared headers ``csrc/*.cuh``
+and the flags, so an edited source or header rebuilds and an unchanged one
+is reused). Nothing is compiled when a module
 is imported: the CPU tests import every module, and only the machine with
 the GPU has ``nvcc``.
 
@@ -48,8 +49,12 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Where ``csrc/<name>.cu`` builds to: the name carries a hash of the
+    source, every shared header (``csrc/*.cuh``) and the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

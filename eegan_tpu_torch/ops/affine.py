@@ -20,9 +20,9 @@ resolution). The statistics stay outside (``TorchBatchNorm(return_stats)``).
   of ``affine_pallas.py:255-271`` (fp32 inside).
 * ``affine_mask_relu.launches`` and ``affine_mask_relu_backward.launches``
   count kernel launches.
-* :func:`backward_launch_plan` is the backward kernel's launch plan (vector
-  width, lanes per pixel, blocks per sample, scratch), plain Python that the
-  CPU tests reach.
+* :func:`forward_launch_plan` and :func:`backward_launch_plan` are the two
+  kernels' launch plans (vector width, lanes per pixel, blocks per sample;
+  the backward's scratch), plain Python that the CPU tests reach.
 
 Layout: x (B, C, h, w) and the result (B, C, H, W) are NCHW tensors in
 ``torch.channels_last`` memory format (NHWC bytes, as the TPU kernel's);
@@ -42,6 +42,7 @@ from eegan_tpu_torch.ops import _build
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535
 _THREADS = 256
+_SMS = 132  # streaming multiprocessors of an H100 SXM
 
 
 def affine_mask_relu_reference(x, mean, var, gamma, beta, mask,
@@ -61,15 +62,73 @@ def affine_mask_relu_reference(x, mean, var, gamma, beta, mask,
 
 
 _BWD_MAX_C = 512
-# Blocks per backward launch: one or two whole waves of two blocks per SM
-# (264 on 132 SMs), the second when there are about 16 pixel steps per
-# block for it, and never more blocks than steps.
-_BWD_WAVE = 264
-_BWD_STEPS_PER_BLOCK = 16
+# Blocks per launch: one or two whole waves (the forward runs four blocks
+# per SM, the backward two), the second when there are about 16 pixel steps
+# per block for it, and never more blocks than steps.
+_FWD_BLOCKS_PER_SM = 4  # __launch_bounds__ of csrc/affine_mask_relu.cu
+_FWD_WAVE = _FWD_BLOCKS_PER_SM * _SMS
+_BWD_WAVE = 2 * _SMS
+_STEPS_PER_BLOCK = 16
 
 
 def _pow2_ceil(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
+
+
+def _blocks_per_sample(B: int, steps: int, wave: int) -> int:
+    """Blocks per sample (and channel chunk) for one or two whole waves."""
+    waves = min(2, max(1, round(B * steps / (wave * _STEPS_PER_BLOCK))))
+    return max(1, min(waves * wave // B, steps))
+
+
+def _fwd_unroll(up: bool, vec: int) -> int:
+    """Pixels a group takes per step: the kernel's own rule
+    (``unroll_for``), which sizes the grid here."""
+    if up:
+        return 1
+    return 4 if vec <= 4 else 2
+
+
+def forward_launch_plan(B: int, C: int, h: int, w: int, up: bool,
+                        in_dtype=torch.bfloat16, aligned: bool = True
+                        ) -> dict:
+    """The forward kernel's launch at these shapes.
+
+    A thread owns ``vec`` channels of one sample (16 bytes of x: 8 bf16 or
+    4 float32; 1 when C is not a multiple of that or an operand is not
+    aligned to a whole vector) and loads their constants once. ``lanes``
+    neighbouring threads cover one pixel's vectors (``chunks`` blocks of
+    them side by side when C / vec exceeds 256), so a block of 256 threads
+    covers ``groups`` pixels at once and each group takes ``unroll`` pixels
+    per step: low-res pixels with ``up``, each written as its 2x2 quad.
+    Thread t of block (x, chunk, b) owns vector ``chunk * lanes + t %
+    lanes`` and, at step k, the pixels ``(k * nblk + x) * groups * unroll
+    + u * groups + t // lanes`` for u < unroll. ``blocks_per_sample``
+    blocks per sample and chunk make one or two whole waves of four blocks
+    per SM of an H100.
+    """
+    if min(B, C, h, w) <= 0:
+        raise ValueError(f"the forward kernel takes positive shapes, got "
+                         f"B={B}, C={C}, h={h}, w={w}")
+    if h * w >= 2 ** 31:
+        raise ValueError(f"the forward kernel takes h * w < 2**31, got "
+                         f"{h}x{w}")
+    vmax = 16 // torch.empty((), dtype=in_dtype).element_size()
+    vec = vmax if C % vmax == 0 and aligned else 1
+    nvec = C // vec
+    lanes = min(nvec, _THREADS)
+    chunks = -(-nvec // lanes)
+    if B > _MAX_GRID_Y or chunks > _MAX_GRID_Y:
+        raise ValueError(f"the forward kernel takes at most {_MAX_GRID_Y} "
+                         f"samples and {_MAX_GRID_Y * _THREADS} vectors of "
+                         f"channels; got B={B}, C={C}")
+    groups = _THREADS // lanes
+    unroll = _fwd_unroll(up, vec)
+    steps = -(-h * w // (groups * unroll))  # per sample and chunk
+    nblk = _blocks_per_sample(B * chunks, steps, _FWD_WAVE)
+    return dict(vec=vec, lanes=lanes, chunks=chunks, groups=groups,
+                unroll=unroll, blocks_per_sample=nblk,
+                grid=(nblk, chunks, B), blocks=nblk * chunks * B)
 
 
 def _bwd_unroll(up: bool, channels_per_lane: int) -> int:
@@ -106,9 +165,7 @@ def backward_launch_plan(B: int, C: int, h: int, w: int, up: bool,
     vpl = _pow2_ceil(-(-nvec // lanes))
     unroll = _bwd_unroll(up, vec * vpl)
     steps = -(-h * w // (_THREADS // lanes * unroll))  # per sample
-    waves = min(2, max(1, round(B * steps / (_BWD_WAVE *
-                                             _BWD_STEPS_PER_BLOCK))))
-    nblk = max(1, min(waves * _BWD_WAVE // B, steps))
+    nblk = _blocks_per_sample(B, steps, _BWD_WAVE)
     return dict(vec=vec, lanes=lanes, vecs_per_lane=vpl, unroll=unroll,
                 pixels_per_warp=32 // lanes, blocks_per_sample=nblk,
                 grid=(nblk, B), scratch_floats=B * nblk * 4 * C)
@@ -119,8 +176,7 @@ def _lib():
     fn = lib.eegan_affine_mask_relu_fwd
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float,
-                       i, i, i, p]
+        fn.argtypes = [p] * 7 + [i] * 5 + [ctypes.c_float] + [i] * 7 + [p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -168,9 +224,6 @@ def _check(x, mean, var, gamma, beta, mask, up, out_dtype):
     for name in ("mean", "var", "gamma", "beta", "mask"):
         if not tensors[name].is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if B * H >= 2 ** 31 or -(-W * C // _THREADS) > _MAX_GRID_Y:
-        raise ValueError(f"shape {tuple(x.shape)} (up={up}) exceeds the "
-                         "kernel's launch grid")
     return B, C, h, w, H, W
 
 
@@ -180,16 +233,24 @@ def _forward_kernel(x, mean, var, gamma, beta, mask, up, eps, out_dtype):
                       memory_format=torch.channels_last)
     if out.numel() == 0:
         return out
-    vec = 16 // x.element_size()
-    out_align = vec * out.element_size()
-    if (C % vec or x.data_ptr() % 16 or out.data_ptr() % out_align):
-        vec = 1
+    # The vector path reads x, gamma, beta (vec * x's size) and mean, var
+    # (vec floats) and writes out as whole vectors; the upsample reads the
+    # mask two elements at a time.
+    vmax = 16 // x.element_size()
+    aligned = (all(t.data_ptr() % 16 == 0 for t in (x, gamma, beta, mean,
+                                                    var))
+               and out.data_ptr() % (vmax * out.element_size()) == 0)
+    if up and mask.data_ptr() % (2 * mask.element_size()):
+        mask = mask.clone()
+    plan = forward_launch_plan(B, C, h, w, up, x.dtype, aligned)
     fn = _lib()
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), mean.data_ptr(), var.data_ptr(),
                  gamma.data_ptr(), beta.data_ptr(), mask.data_ptr(),
                  out.data_ptr(), B, h, w, C, int(up), float(eps),
-                 _DTYPE_CODES[x.dtype], _DTYPE_CODES[out_dtype], vec,
+                 _DTYPE_CODES[x.dtype], _DTYPE_CODES[out_dtype], plan["vec"],
+                 plan["lanes"], plan["chunks"], plan["blocks_per_sample"],
+                 plan["unroll"],
                  torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"affine_mask_relu kernel launch failed: CUDA "

@@ -34,35 +34,40 @@
 // text and image. The per-group stabiliser of the TPU kernel is not needed
 // either: the row max over one text's words is exact.
 //
-// * forward: one block per pair (Bi*Bt blocks). W, C and the (S, L) logits
-//   and probabilities sit in shared memory; R is read from global memory
-//   (9.5 MB for 32 images, held in the 50 MB L2).
+// * The pair's forward (pair_attend), shared by the forward kernel and dR's
+//   first pass, runs over the text's n valid words only (rounded up to NQ,
+//   a multiple of 4, a template parameter chosen per block). Its products
+//   (A = R W^T, C = attn2^T R; dR adds da2 = R dC^T) keep register tiles: a
+//   thread owns up to four regions x NQ words (or four columns x NQ words),
+//   so each float4 of R read from the L2 (9.5 MB for 32 images, held in the
+//   50 MB L2) feeds 4 NQ multiply-adds or more, and the next one is loaded
+//   before they run. The softmaxes, cosines and Z are group-wide: a word
+//   group of WG lanes (NQ rounded up to a power of 2) takes a region row,
+//   and the reductions are shuffles in the group or fixed-order sums of 256
+//   partials in shared memory.
+// * forward, damsm_words_fwd: one block per pair (Bt x Bi = 1024 blocks at
+//   the train shape); W, C and one (S, LP) grid (attn2 overwrites attn1) in
+//   shared memory, 64.7 KB at that shape. Two blocks share an SM: the
+//   registers (128 a thread) allow no third, and capping them at 80 for
+//   three blocks spills and runs slower.
 // * dR, two launches, no atomics, deterministic:
-//   - damsm_dr_pair, one block per pair (Bt x Bi = 1024 blocks at the train
-//     shape), runs the pair's forward and backward down to dA and dC over
-//     its n valid words only (rounded up to NQ, a multiple of 4, a template
-//     parameter), and writes dA and attn2 (n x S) and dC (n x D) to a float32
-//     scratch of 4 Bi Bt L (2 SP + D) bytes (68.8 MB at (32, 32, 289, 20,
-//     256)). Its three products (A = R W^T, C = attn2^T R, da2 = R dC^T) keep
-//     register tiles: a thread owns up to four regions x NQ words (or four
-//     columns x NQ words), so each float4 of R read from the L2 feeds 4 NQ
-//     multiply-adds or more, and the next one is loaded before they run.
-//     W, C/dC and the three (S, LP) grids (attn1, attn2, da2/dA) are in
-//     shared memory, 112.5 KB at that shape, so two blocks fit on an SM. The
-//     softmaxes, cosines and Z are group-wide: a word group of WG lanes (NQ
-//     rounded up to a power of 2) takes a region row, and the reductions
-//     are shuffles in the group or fixed-order sums of 256 partials in
-//     shared memory.
+//   - damsm_dr_pair, one block per pair, runs the pair's forward and
+//     backward down to dA and dC, and writes dA and attn2 (n x S) and dC
+//     (n x D) to a float32 scratch of 4 Bi Bt L (2 SP + D) bytes (68.8 MB at
+//     (32, 32, 289, 20, 256)). W, C/dC and three (S, LP) grids (attn1,
+//     attn2, da2/dA) are in shared memory, 112.5 KB at that shape, so two
+//     blocks fit on an SM.
 //   - damsm_dr_sum, one block per image and 64 x 64 tile of (S, D) (640
 //     blocks), sums dR = sum_t (dA_t W_t + attn2_t dC_t) over the texts in
 //     index order, a product with K = 2 n_t per text staged in shared
 //     memory, 4 x 4 outputs per thread, each output written once.
 // * dW: one block per text, looping over the images in order; each thread
 //   keeps its column d of dW for all words in registers. It still uses one
-//   block per text (32 blocks) and the per-pair code of the forward.
+//   block per text (32 blocks) and its own per-pair code over all L words
+//   (pair_forward, pair_backward).
 // Products run on the CUDA cores in float32. A padded word gets
 // attn1 = 0 exactly (exp(-1e9 - max)), hence dA = 0, dcos = 0 and an exactly
-// zero dW; dR skips padded words altogether.
+// zero dW; the forward and dR skip padded words altogether.
 //
 // C interface: eegan_damsm_words_{fwd,bwd_dr,bwd_dw}(...) return
 // cudaGetLastError() after the launches (0 = launched), or
@@ -327,38 +332,15 @@ size_t smem_floats(int LT, const Dims& d, int n_tiles, int n_grids) {
   return (size_t)n_tiles * LT * d.DP + (size_t)n_grids * d.S * d.LP;
 }
 
-template <int LT>
-__global__ void __launch_bounds__(kThreads) damsm_words_fwd(
-    const float* __restrict__ regions, const float* __restrict__ words,
-    const int* __restrict__ lens, float* __restrict__ sims, int Bt, Dims d,
-    float gamma1, float gamma2) {
-  extern __shared__ float4 smem4[];
-  float* sW = reinterpret_cast<float*>(smem4);
-  float* sC = sW + LT * d.DP;
-  // attn2 overwrites attn1 in place: the forward needs only one (S, LT)
-  // grid, so two blocks fit on an SM.
-  float* sP1 = sC + LT * d.DP;
-  float* sP2 = sP1;
-  __shared__ WordStats st;
-  const int t = blockIdx.x;
-  const int i = blockIdx.y;
-  const float* R = regions + (int64_t)i * d.S * d.D;
-
-  load_words<LT>(words, t, d, sW);
-  __syncthreads();
-  pair_forward<LT>(R, lens[t], gamma1, gamma2, d, sW, sC, sP1, sP2, st);
-  if (threadIdx.x == 0) sims[(int64_t)i * Bt + t] = logf(fmaxf(st.Z, kEps));
-}
-
 // ---------------------------------------------------------------------------
-// dR in two launches (see the note at the top): damsm_dr_pair, one block per
-// (text, image) pair, then damsm_dr_sum, one block per (image, 64x64 tile).
+// The forward and dR's first pass, one block per (text, image) pair over the
+// text's valid words; then damsm_dr_sum, one block per (image, 64x64 tile).
 // ---------------------------------------------------------------------------
 
-// Layout of dR's shared memory and scratch: LT = L rounded up to 4, the rows
-// of the (LT, D) tiles; LP, the row stride of the (S, LP) grids; SP, the row
-// stride of the scratch's (L, SP) planes. LP and SP come from the launch plan
-// (ops/damsm.py:dr_launch_plan).
+// Layout of the pair blocks' shared memory and dR's scratch: LT = L rounded
+// up to 4, the rows of the (LT, D) tiles; LP, the row stride of the (S, LP)
+// grids; SP, the row stride of the scratch's (L, SP) planes. LP and SP come
+// from the launch plans (ops/damsm.py:fwd_launch_plan, dr_launch_plan).
 struct DrDims {
   int Bi, Bt, S, L, D;
   int LT, LP, DP, SP;
@@ -376,13 +358,6 @@ DrDims make_dr_dims(int Bi, int Bt, int S, int L, int D, int LP, int SP) {
   d.DP = D + 4;
   d.SP = SP;
   return d;
-}
-
-// Floats of damsm_dr_pair's dynamic shared memory: sW and sC (LT, DP), three
-// (S, LP) grids, kThreads floats for the column reductions and four 32-float
-// arrays of per-word statistics.
-size_t dr_pair_smem_floats(const DrDims& d) {
-  return (size_t)2 * d.LT * d.DP + (size_t)3 * d.S * d.LP + kThreads + 4 * 32;
 }
 
 __device__ __forceinline__ unsigned group_mask(int width) {
@@ -525,32 +500,35 @@ __device__ void dr_cols(const float* __restrict__ R, const float* P, float* C,
   }
 }
 
-// One (text t, image i) pair of the dR pass, for n valid words rounded up to
-// NQ (a multiple of 4). Writes the pair's dA and attn2 (n rows of S, word
-// major) and dC (n rows of D) to the scratch; damsm_dr_sum makes dR of them.
+// Per-word statistics of a pair, in shared memory (32 floats each).
+struct PairStats {
+  float *cos, *den, *cn2, *row;
+};
+
+// Word groups of the softmaxes: WG = NQ rounded up to a power of 2 lanes
+// per region row; lane l of a group is word l, NSUB region rows per pass.
 template <int NQ>
-__device__ void dr_pair(const float* __restrict__ R,
-                        const float* __restrict__ W, int n, float g,
-                        float gamma1, float gamma2, const DrDims& d,
-                        float* __restrict__ oA, float* __restrict__ oG,
-                        float* __restrict__ oC) {
-  extern __shared__ float4 smem4[];
-  float* sW = reinterpret_cast<float*>(smem4);  // (LT, DP) words, 0 for l >= n
-  float* sC = sW + d.LT * d.DP;                 // (LT, DP) C, then dC
-  float* sP1 = sC + d.LT * d.DP;                // (S, LP) A, then attn1
-  float* sP2 = sP1 + d.S * d.LP;                // (S, LP) attn2
-  float* sX = sP2 + d.S * d.LP;                 // (S, LP) da2, then dA
-  float* red = sX + d.S * d.LP;                 // kThreads partials
-  float* st_cos = red + kThreads;               // per-word statistics
-  float* st_den = st_cos + 32;
-  float* st_cn2 = st_den + 32;
-  float* st_row = st_cn2 + 32;
+struct WordGroups {
+  static constexpr int WG = NQ <= 4 ? 4 : NQ <= 8 ? 8 : NQ <= 16 ? 16 : 32;
+  static constexpr int NSUB = kThreads / WG;
+};
+
+// The forward of one (text, image) pair over its n valid words, rounded up
+// to NQ (a multiple of 4), as far as the per-word cosines: sW <- W (0 for
+// l >= n), sP1 <- attn1, sP2 <- attn2, sC <- C = attn2^T R (0 for the padded
+// words) and, per valid word, st.cos, st.den, st.cn2 and st.row = exp(gamma2
+// cos). sP2 may be sP1: attn2 then overwrites attn1 in place (each element
+// is read and written by the same thread). red holds kThreads partials.
+// Ends with a barrier.
+template <int NQ>
+__device__ void pair_attend(const float* __restrict__ R,
+                            const float* __restrict__ W, int n, float gamma1,
+                            float gamma2, const DrDims& d, float* sW,
+                            float* sC, float* sP1, float* sP2, float* red,
+                            const PairStats& st) {
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  // Word groups: WG = NQ rounded up to a power of 2 lanes per region row;
-  // lane l of a group is word l.
-  const int WG = NQ <= 4 ? 4 : NQ <= 8 ? 8 : NQ <= 16 ? 16 : 32;
-  const int NSUB = kThreads / WG;  // region rows per pass
+  constexpr int WG = WordGroups<NQ>::WG;
+  constexpr int NSUB = WordGroups<NQ>::NSUB;
   const int l = tid & (WG - 1);
   const int sub = tid / WG;
   const unsigned wm = group_mask(WG);
@@ -637,27 +615,65 @@ __device__ void dr_pair(const float* __restrict__ R,
       if (k == 0) {
         const float den = fmaxf(sqrtf(ww) * sqrtf(cc), kEps);
         const float cs = wc / den;
-        st_cos[wl] = cs;
-        st_den[wl] = den;
-        st_cn2[wl] = fmaxf(cc, kEps * kEps);
-        st_row[wl] = expf(gamma2 * cs);
+        st.cos[wl] = cs;
+        st.den[wl] = den;
+        st.cn2[wl] = fmaxf(cc, kEps * kEps);
+        st.row[wl] = expf(gamma2 * cs);
       }
     }
   }
   __syncthreads();
+}
+
+// Shared-memory layout of a pair block: sW and sC (LT, DP), then the (S, LP)
+// grids (three for dR, one for the forward), kThreads floats of partials and
+// four 32-float arrays of per-word statistics.
+size_t pair_smem_floats(const DrDims& d, int grids) {
+  return (size_t)2 * d.LT * d.DP + (size_t)grids * d.S * d.LP + kThreads +
+         4 * 32;
+}
+
+// One (text t, image i) pair of the dR pass, for n valid words rounded up to
+// NQ (a multiple of 4). Writes the pair's dA and attn2 (n rows of S, word
+// major) and dC (n rows of D) to the scratch; damsm_dr_sum makes dR of them.
+template <int NQ>
+__device__ void dr_pair(const float* __restrict__ R,
+                        const float* __restrict__ W, int n, float g,
+                        float gamma1, float gamma2, const DrDims& d,
+                        float* __restrict__ oA, float* __restrict__ oG,
+                        float* __restrict__ oC) {
+  extern __shared__ float4 smem4[];
+  float* sW = reinterpret_cast<float*>(smem4);  // (LT, DP) words, 0 for l >= n
+  float* sC = sW + d.LT * d.DP;                 // (LT, DP) C, then dC
+  float* sP1 = sC + d.LT * d.DP;                // (S, LP) A, then attn1
+  float* sP2 = sP1 + d.S * d.LP;                // (S, LP) attn2
+  float* sX = sP2 + d.S * d.LP;                 // (S, LP) da2, then dA
+  float* red = sX + d.S * d.LP;                 // kThreads partials
+  const PairStats st{red + kThreads, red + kThreads + 32,
+                     red + kThreads + 64, red + kThreads + 96};
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  constexpr int WG = WordGroups<NQ>::WG;
+  constexpr int NSUB = WordGroups<NQ>::NSUB;
+  const int l = tid & (WG - 1);
+  const int sub = tid / WG;
+  const unsigned wm = group_mask(WG);
+  const int D4 = d.D >> 2;
+
+  pair_attend<NQ>(R, W, n, gamma1, gamma2, d, sW, sC, sP1, sP2, red, st);
 
   // Z = sum of the valid words' rows, in every warp; dC in place of C.
-  const float Z = warp_sum(lane < n ? st_row[lane] : 0.0f);
+  const float Z = warp_sum(lane < n ? st.row[lane] : 0.0f);
   for (int k = tid; k < NQ * D4; k += kThreads) {
     const int r = k / D4;
     const int c = k - r * D4;
     float4* cv = reinterpret_cast<float4*>(sC + r * d.DP + 4 * c);
     float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     if (r < n) {
-      const float dcos = g * st_row[r] * gamma2 / fmaxf(Z, kEps);
+      const float dcos = g * st.row[r] * gamma2 / fmaxf(Z, kEps);
       const float4 w = *reinterpret_cast<const float4*>(sW + r * d.DP + 4 * c);
       const float4 cc = *cv;
-      const float den = st_den[r], cs = st_cos[r], cn2 = st_cn2[r];
+      const float den = st.den[r], cs = st.cos[r], cn2 = st.cn2[r];
       v.x = dcos * (w.x / den - cs * cc.x / cn2);
       v.y = dcos * (w.y / den - cs * cc.y / cn2);
       v.z = dcos * (w.z / den - cs * cc.z / cn2);
@@ -712,8 +728,62 @@ __device__ void dr_pair(const float* __restrict__ R,
   }
 }
 
-// Pass 1: grid (Bt, Bi), one block per pair; two blocks fit on an SM while
-// the shared memory allows (L <= 20 at S = 289, D = 256).
+// The forward: grid (Bt, Bi), one block per pair. One (S, LP) grid (attn2
+// overwrites attn1), 64.7 KB at the train shape (L = 20). A text with no
+// valid word gets log(eps), as the reference's masked sum of 0 does.
+template <int NQ>
+__device__ void fwd_pair(const float* __restrict__ R,
+                         const float* __restrict__ W, int n, float gamma1,
+                         float gamma2, const DrDims& d,
+                         float* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  float* sW = reinterpret_cast<float*>(smem4);  // (LT, DP) words
+  float* sC = sW + d.LT * d.DP;                 // (LT, DP) C
+  float* sP = sC + d.LT * d.DP;                 // (S, LP) attn1, then attn2
+  float* red = sP + d.S * d.LP;                 // kThreads partials
+  const PairStats st{red + kThreads, red + kThreads + 32,
+                     red + kThreads + 64, red + kThreads + 96};
+  pair_attend<NQ>(R, W, n, gamma1, gamma2, d, sW, sC, sP, sP, red, st);
+  const int tid = threadIdx.x;
+  if (tid < 32) {  // Z as dR's pass sums it: the valid words' rows, a warp
+    const float Z = warp_sum(tid < n ? st.row[tid] : 0.0f);
+    if (tid == 0) *out = logf(fmaxf(Z, kEps));
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 2) damsm_words_fwd(
+    const float* __restrict__ regions, const float* __restrict__ words,
+    const int* __restrict__ lens, float* __restrict__ sims, DrDims d,
+    float gamma1, float gamma2) {
+  const int t = blockIdx.x;
+  const int i = blockIdx.y;
+  const int n = min(max(lens[t], 0), d.L);
+  float* out = sims + (int64_t)i * d.Bt + t;
+  if (n == 0) {
+    if (threadIdx.x == 0) *out = logf(kEps);
+    return;
+  }
+  const float* R = regions + (int64_t)i * d.S * d.D;
+  const float* W = words + (int64_t)t * d.L * d.D;
+  switch ((n + 3) / 4) {
+#define EEGAN_FWD_CASE(Q)                                \
+  case Q:                                                \
+    fwd_pair<4 * Q>(R, W, n, gamma1, gamma2, d, out);    \
+    break;
+    EEGAN_FWD_CASE(1)
+    EEGAN_FWD_CASE(2)
+    EEGAN_FWD_CASE(3)
+    EEGAN_FWD_CASE(4)
+    EEGAN_FWD_CASE(5)
+    EEGAN_FWD_CASE(6)
+    EEGAN_FWD_CASE(7)
+    EEGAN_FWD_CASE(8)
+#undef EEGAN_FWD_CASE
+  }
+}
+
+// dR pass 1: grid (Bt, Bi), one block per pair; two blocks fit on an SM
+// while the shared memory allows (L <= 20 at S = 289, D = 256).
 __global__ void __launch_bounds__(kThreads, 2) damsm_dr_pair(
     const float* __restrict__ regions, const float* __restrict__ words,
     const int* __restrict__ lens, const float* __restrict__ dsim,
@@ -906,36 +976,42 @@ bool shape_ok(int S, int L, int D) {
   return S > 0 && L > 0 && L <= 32 && D > 0 && D <= kThreads && D % 4 == 0;
 }
 
-// The forward and dW take their dynamic shared memory from the caller
-// (ops/damsm.py:smem_bytes), which must cover smem_floats.
-template <int LT>
-cudaError_t fwd(const float* r, const float* w, const int* lens, float* sims,
-                int Bi, int Bt, int S, int L, int D, size_t bytes, float g1,
-                float g2, cudaStream_t s) {
-  const Dims d = make_dims(S, L, D, LT);
-  if (bytes < smem_floats(LT, d, 2, 1) * sizeof(float))
-    return cudaErrorInvalidValue;
-  cudaError_t err = set_smem((const void*)damsm_words_fwd<LT>, bytes);
+// Dynamic shared memory and the largest shared-memory carveout for a pair
+// kernel, so that two or more of its blocks share an SM.
+cudaError_t set_pair_smem(const void* fn, size_t bytes) {
+  const cudaError_t err = set_smem(fn, bytes);
   if (err != cudaSuccess) return err;
-  damsm_words_fwd<LT><<<dim3(Bt, Bi), kThreads, bytes, s>>>(r, w, lens, sims,
-                                                             Bt, d, g1, g2);
+  return cudaFuncSetAttribute(fn,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+// The forward. Its dynamic shared memory, which must cover
+// pair_smem_floats(d, 1), and LP come from the launch plan.
+cudaError_t fwd(const float* r, const float* w, const int* lens, float* sims,
+                DrDims d, size_t smem_bytes, float g1, float g2,
+                cudaStream_t s) {
+  if (d.LP < d.LT || d.LP % 4 != 0 ||
+      smem_bytes < pair_smem_floats(d, 1) * sizeof(float) || d.Bi > 65535)
+    return cudaErrorInvalidValue;
+  const cudaError_t err = set_pair_smem((const void*)damsm_words_fwd,
+                                        smem_bytes);
+  if (err != cudaSuccess) return err;
+  damsm_words_fwd<<<dim3(d.Bt, d.Bi), kThreads, smem_bytes, s>>>(
+      r, w, lens, sims, d, g1, g2);
   return cudaGetLastError();
 }
 
 // The two launches of dR. The scratch (4 Bi Bt L (2 SP + D) bytes) and pass
-// 1's dynamic shared memory, which must cover dr_pair_smem_floats, come from
-// the launch plan.
+// 1's dynamic shared memory, which must cover pair_smem_floats(d, 3), come
+// from the launch plan.
 cudaError_t bwd_dr(const float* r, const float* w, const int* lens,
                    const float* dsim, float* dR, float* scratch, DrDims d,
                    size_t smem_bytes, float g1, float g2, cudaStream_t s) {
   if (d.LP < d.LT || d.LP % 4 != 0 || d.SP < d.S || d.SP % 4 != 0 ||
-      smem_bytes < dr_pair_smem_floats(d) * sizeof(float) || d.Bi > 65535)
+      smem_bytes < pair_smem_floats(d, 3) * sizeof(float) || d.Bi > 65535)
     return cudaErrorInvalidValue;
-  cudaError_t err = set_smem((const void*)damsm_dr_pair, smem_bytes);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute((const void*)damsm_dr_pair,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
+  cudaError_t err = set_pair_smem((const void*)damsm_dr_pair, smem_bytes);
   if (err != cudaSuccess) return err;
   damsm_dr_pair<<<dim3(d.Bt, d.Bi), kThreads, smem_bytes, s>>>(
       r, w, lens, dsim, scratch, d, g1, g2);
@@ -972,17 +1048,19 @@ cudaError_t bwd_dw(const float* r, const float* w, const int* lens,
 // All float32 and contiguous: regions (Bi,S,D), words (Bt,L,D), lens (Bt,)
 // int32, sims and dsim (Bi,Bt), dR (Bi,S,D), dW (Bt,L,D). smem_bytes is the
 // dynamic shared memory of a block, from the launch plan.
+
+// The forward: LP and smem_bytes are the launch plan's.
 extern "C" int eegan_damsm_words_fwd(const void* regions, const void* words,
                                      const void* lens, void* sims, int Bi,
-                                     int Bt, int S, int L, int D,
+                                     int Bt, int S, int L, int D, int LP,
                                      long long smem_bytes, float gamma1,
                                      float gamma2, void* stream) {
-  EEGAN_DAMSM_DISPATCH(fwd, static_cast<const float*>(regions),
-                       static_cast<const float*>(words),
-                       static_cast<const int*>(lens),
-                       static_cast<float*>(sims), Bi, Bt, S, L, D,
-                       (size_t)smem_bytes, gamma1, gamma2,
-                       static_cast<cudaStream_t>(stream))
+  if (!shape_ok(S, L, D) || Bi <= 0 || Bt <= 0) return cudaErrorInvalidValue;
+  const DrDims d = make_dr_dims(Bi, Bt, S, L, D, LP, 0);
+  return fwd(static_cast<const float*>(regions),
+             static_cast<const float*>(words), static_cast<const int*>(lens),
+             static_cast<float*>(sims), d, (size_t)smem_bytes, gamma1, gamma2,
+             static_cast<cudaStream_t>(stream));
 }
 
 // dR: scratch is float32 of 4 Bi Bt L (2 SP + D) bytes; LP, SP and

@@ -18,9 +18,10 @@ words loss contrasts (reference hot spot `miscc/DAMSM_losses.py:272-342`).
   contrastive CE over that grid, a drop-in for ``losses.damsm.words_loss``.
 * ``words_similarity_forward.launches``, ``words_similarity_backward_dr
   .launches`` and ``words_similarity_backward_dw.launches`` count launches.
-* :func:`dr_launch_plan` and :func:`smem_bytes` are the kernels' launch
-  plans and shared-memory layouts, plain Python that the CPU tests reach;
-  the C side only checks that a plan covers its layout.
+* :func:`fwd_launch_plan`, :func:`dr_launch_plan` and :func:`smem_bytes`
+  are the kernels' launch plans and shared-memory layouts, plain Python
+  that the CPU tests reach; the C side only checks that a plan covers its
+  layout.
 
 Everything is float32: regions (Bi, S, D) or (Bi, 17, 17, D), words
 (Bt, L, D), cap_lens (Bt,) integers.
@@ -51,14 +52,72 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
+def _word_rows(L: int) -> Tuple[int, int]:
+    """(LT, LP) of the pair kernels: LT = L rounded up to 4, the rows of the
+    (LT, D + 4) word and context tiles; LP, the row stride of the (S, LP)
+    grids. A stride of 4 mod 8 floats spreads a grid column over 8 banks
+    (dR's copy-out reads grids column-wise)."""
+    LT = _round_up(L, 4)
+    return LT, LT if LT % 8 == 4 else LT + 4
+
+
+def _pair_smem(S: int, L: int, D: int, grids: int) -> int:
+    """Dynamic shared memory of a pair block (the forward, dR pass 1): the
+    (LT, D + 4) words and contexts, ``grids`` (S, LP) grids, 256 partials
+    and four 32-float per-word statistics, float32."""
+    LT, LP = _word_rows(L)
+    return 4 * (2 * LT * (D + 4) + grids * S * LP + _THREADS + 4 * 32)
+
+
+def _check_shape(what: str, Bi: int, Bt: int, S: int, L: int, D: int):
+    if min(Bi, Bt, S, L, D) <= 0 or L > 32 or D % 4 or D > _THREADS:
+        raise ValueError(f"{what} takes 0 < L <= 32, D % 4 == 0, 0 < D <= "
+                         f"{_THREADS}; got Bi={Bi}, Bt={Bt}, S={S}, L={L}, "
+                         f"D={D}")
+    if Bi > 65535:
+        raise ValueError(f"{what} takes at most 65535 images, got {Bi}")
+
+
+def _blocks_per_sm(smem: int) -> int:
+    """Blocks of a pair kernel that fit on an SM: its shared memory (1 KB
+    reserved per block) and ``__launch_bounds__(256, 2)``, which caps the
+    registers at two blocks' worth and promises no more."""
+    return min(2, _SM_SMEM // (smem + 1024))
+
+
 def smem_bytes(kind: str, S: int, L: int, D: int) -> int:
     """Dynamic shared memory of one block of the forward (``"fwd"``) or dW
-    (``"dw"``) kernel: (LT, D + 4) tiles of words and contexts (two; dW also
-    dC) and (S, LT + 4) grids of probabilities (one; dW three), float32,
-    with LT = L rounded up to 8, 16, 24 or 32 (the kernels' template)."""
+    (``"dw"``) kernel, float32. The forward: the pair layout with one
+    (S, LP) grid (see :func:`fwd_launch_plan`). dW: three (LT, D + 4) tiles
+    of words, contexts and dC and three (S, LT + 4) grids of probabilities,
+    with LT = L rounded up to 8, 16, 24 or 32 (its template)."""
+    if kind == "fwd":
+        return _pair_smem(S, L, D, 1)
+    if kind != "dw":
+        raise ValueError(f"kind must be 'fwd' or 'dw', got {kind!r}")
     LT = min(_round_up(L, 8), 32)
-    tiles, grids = {"fwd": (2, 1), "dw": (3, 3)}[kind]
-    return 4 * (tiles * LT * (D + 4) + grids * S * (LT + 4))
+    return 4 * (3 * LT * (D + 4) + 3 * S * (LT + 4))
+
+
+def fwd_launch_plan(Bi: int, Bt: int, S: int, L: int, D: int) -> dict:
+    """The launch of kernel 3 (the DAMSM forward) at these shapes.
+
+    ``damsm_words_fwd``: one block of 256 threads per (text, image) pair,
+    grid (Bt, Bi), over the text's valid words only. Its shared memory
+    holds the words and contexts (LT, D + 4), one (S, LP) grid (attn1, then
+    attn2 in place), 256 partials and four 32-float per-word statistics:
+    64.7 KB at the train shape, so that at least two blocks share an SM.
+    Raises ValueError for shapes the kernel does not take.
+    """
+    _check_shape("the DAMSM forward", Bi, Bt, S, L, D)
+    smem = smem_bytes("fwd", S, L, D)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"the DAMSM forward needs {smem} bytes of shared "
+                         f"memory at S={S}, L={L}, D={D} (limit "
+                         f"{_SMEM_LIMIT})")
+    return dict(threads=_THREADS, LP=_word_rows(L)[1], grid=(Bt, Bi),
+                blocks=Bt * Bi, smem_bytes=smem,
+                blocks_per_sm=_blocks_per_sm(smem))
 
 
 def dr_launch_plan(Bi: int, Bt: int, S: int, L: int, D: int) -> dict:
@@ -71,27 +130,18 @@ def dr_launch_plan(Bi: int, Bt: int, S: int, L: int, D: int) -> dict:
     text the dA W terms of its valid words, then the attn2 dC terms).
     Raises ValueError for shapes the kernels do not take.
     """
-    if min(Bi, Bt, S, L, D) <= 0 or L > 32 or D % 4 or D > _THREADS:
-        raise ValueError(f"dR takes 0 < L <= 32, D % 4 == 0, 0 < D <= "
-                         f"{_THREADS}; got Bi={Bi}, Bt={Bt}, S={S}, L={L}, "
-                         f"D={D}")
-    if Bi > 65535:
-        raise ValueError(f"dR takes at most 65535 images, got {Bi}")
-    LT = _round_up(L, 4)
-    # A stride of 4 mod 8 floats spreads a grid column over 8 banks (the
-    # copy-out reads grids column-wise).
-    LP = LT if LT % 8 == 4 else LT + 4
+    _check_shape("dR", Bi, Bt, S, L, D)
     SP = _round_up(S, 4)
-    smem = 4 * (2 * LT * (D + 4) + 3 * S * LP + _THREADS + 4 * 32)
+    smem = _pair_smem(S, L, D, 3)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"dR pass 1 needs {smem} bytes of shared memory at "
                          f"S={S}, L={L}, D={D} (limit {_SMEM_LIMIT})")
     sum_grid = (-(-D // _SUM_TILE[1]), -(-S // _SUM_TILE[0]), Bi)
     return dict(
-        threads=_THREADS, LP=LP, SP=SP,
+        threads=_THREADS, LP=_word_rows(L)[1], SP=SP,
         pair_grid=(Bt, Bi), pair_blocks=Bt * Bi,
         pair_smem_bytes=smem,
-        pair_blocks_per_sm=min(2, _SM_SMEM // (smem + 1024)),
+        pair_blocks_per_sm=_blocks_per_sm(smem),
         sum_grid=sum_grid, sum_blocks=sum_grid[0] * sum_grid[1] * Bi,
         scratch_bytes=4 * Bi * Bt * L * (2 * SP + D))
 
@@ -108,7 +158,7 @@ def _lib():
     if lib.eegan_damsm_words_fwd.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         n = ctypes.c_longlong
-        lib.eegan_damsm_words_fwd.argtypes = [p] * 4 + [i] * 5 + [n, f, f, p]
+        lib.eegan_damsm_words_fwd.argtypes = [p] * 4 + [i] * 6 + [n, f, f, p]
         lib.eegan_damsm_words_bwd_dr.argtypes = (
             [p] * 6 + [i] * 7 + [n, f, f, p])
         lib.eegan_damsm_words_bwd_dw.argtypes = [p] * 5 + [i] * 5 + [n, f, f,
@@ -170,15 +220,16 @@ def _check_err(err: int, what: str) -> None:
 
 def words_similarity_forward(regions, words, cap_lens, gamma1: float = 5.0,
                              gamma2: float = 5.0) -> torch.Tensor:
-    """Kernel 3: the (Bi, Bt) log-similarity grid. CUDA tensors only."""
+    """Kernel 3: the (Bi, Bt) log-similarity grid, in the launch of
+    :func:`fwd_launch_plan`. CUDA tensors only."""
     r, w, lens, (Bi, Bt, S, L, D), lib = _prepare(regions, words, cap_lens)
-    smem = _smem_checked("fwd", S, L, D)
+    plan = fwd_launch_plan(Bi, Bt, S, L, D)
     sims = torch.empty((Bi, Bt), dtype=torch.float32, device=r.device)
     with torch.cuda.device(r.device):
         err = lib.eegan_damsm_words_fwd(
             r.data_ptr(), w.data_ptr(), lens.data_ptr(), sims.data_ptr(),
-            Bi, Bt, S, L, D, smem, float(gamma1), float(gamma2),
-            torch.cuda.current_stream(r.device).cuda_stream)
+            Bi, Bt, S, L, D, plan["LP"], plan["smem_bytes"], float(gamma1),
+            float(gamma2), torch.cuda.current_stream(r.device).cuda_stream)
     _check_err(err, "damsm_words_fwd")
     words_similarity_forward.launches += 1
     return sims

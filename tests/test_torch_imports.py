@@ -1,5 +1,6 @@
-"""The port stands alone: no file of ``eegan_tpu_torch/`` and not
-``chip_smoke.py`` imports JAX, flax or the JAX package (``eegan_tpu``).
+"""The port stands alone: no file of ``eegan_tpu_torch/`` and neither
+``chip_smoke.py`` nor ``chip_variants.py`` imports JAX, flax or the JAX
+package (``eegan_tpu``).
 Checked on the source (AST), so an import inside a function counts too."""
 
 import ast
@@ -12,7 +13,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "eegan_tpu")
 
 
 def _port_files():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, n) for n in ("chip_smoke.py",
+                                             "chip_variants.py")]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "eegan_tpu_torch")):
         files += [os.path.join(dirpath, n) for n in sorted(names)
                   if n.endswith(".py")]
@@ -37,7 +39,7 @@ def _imported_modules(path):
 def test_port_files_are_found():
     files = _port_files()
     rel = {os.path.relpath(f, ROOT) for f in files}
-    assert "chip_smoke.py" in rel
+    assert "chip_smoke.py" in rel and "chip_variants.py" in rel
     assert os.path.join("eegan_tpu_torch", "ops", "affine.py") in rel
     assert len(files) > 15
 

@@ -102,13 +102,18 @@ def test_dr_plan_refuses_shapes_the_kernels_do_not_take(shape):
                                   (32, 32)])
 def test_forward_and_dw_shared_memory(L, LT):
     S, D = 289, 256
-    # Words and contexts (LT, D + 4) and one (S, LT + 4) grid; dW adds dC
-    # and two grids.
-    assert smem_bytes("fwd", S, L, D) == 4 * (2 * LT * 260 + S * (LT + 4))
+    # The forward: words and contexts (L rounded up to 4 rows of D + 4),
+    # one (S, LP) grid (LP: those rows, plus 4 unless 4 mod 8), 256
+    # partials and four 32-float word statistics. dW: three (LT, D + 4)
+    # tiles and three (S, LT + 4) grids, LT its template's word count.
+    L4 = -(-L // 4) * 4
+    LP = L4 if L4 % 8 == 4 else L4 + 4
+    assert smem_bytes("fwd", S, L, D) == 4 * (2 * L4 * 260 + S * LP + 384)
     assert smem_bytes("dw", S, L, D) == 4 * (3 * LT * 260 + 3 * S * (LT + 4))
     assert smem_bytes("dw", S, L, D) <= SMEM_PER_BLOCK
-    if L == 20:  # the train shape: the forward fits two blocks per SM
-        assert smem_bytes("fwd", S, L, D) == 82_288
+    if L == 20:  # the train shape: three forward blocks' shared memory fits
+        assert smem_bytes("fwd", S, L, D) == 66_256
+        assert 3 * (66_256 + 1024) <= 228 * 1024
         assert smem_bytes("dw", S, L, D) == 171_984
 
 
