@@ -57,6 +57,30 @@ sampling phases:
 13. that step's device busy time, idle share, top device operations and
    peak memory (torch.profiler).
 
+The trainer slice, run after phase 13 (cfg/bird.yml, B=32, bf16, both
+kernel families on):
+
+14. ``Trainer`` in-process on a demo corpus written by the port's
+   ``data/demo_corpus.py`` (576 images, 384 for training: one epoch of 12
+   iterations, 8 spawned data workers): images/s (``StepTimer``, its
+   window opened after a synchronise, iterations 3-12), the
+   host's wait on the pipeline per step, kernel launches per iteration
+   (14 / 14 / 1 / 1 / 0) and per ``save_images`` (14 of kernel 1),
+   checkpoint save time and size; then a second ``Trainer`` on the same
+   directory resumes at epoch 2 with the same step and bitwise-equal Adam
+   moments and takes 5 finite steps, the last 3 traced by the trainer's
+   own profiler (``profile_steps``): the device's busy time per iteration
+   and its idle share;
+15. the CLIs as subprocesses: ``pretrain_damsm --synthetic`` (full width,
+   2 iterations), then ``train --synthetic`` with TEXT.DAMSM_NAME at its
+   output (the directory branch); and a float32 DAMSM pretraining step
+   on cuda (TF32 off) against the CPU step: metrics within 1e-3
+   relative; the gradients Adam took (from its moments) within 1e-3
+   relative L2 and the parameters within PERF.md §2's bar for an Adam
+   step, for the text encoder and the image encoder's heads, and for the
+   whole image encoder in a second cuda step with cuDNN off (with cuDNN
+   the Inception trunk's gradients are held to 1e-1 relative L2).
+
 The last lines are one JSON ``kernels`` line, the card's name and power
 limit as nvidia-smi prints them, and ``{"ok": true, "device": {...}}``;
 the JSON lines before them hold the steps' times and the breakdowns'
@@ -1106,6 +1130,371 @@ def phase_train_breakdown(train, step_ms: float):
         f"{peak_mib} MiB")
     return result
 
+# ---------------------------------------------------------------------------
+# The trainer slice: Trainer, data pipeline, checkpoints, the two CLIs
+# ---------------------------------------------------------------------------
+
+CORPUS_FILES = 576  # the demo corpus: 384 train images = 12 batches of 32
+RESUMED_ITERS = 5  # the resumed trainer's iterations, the last 3 traced
+TRACED_STEPS = 3
+# Device activity in a torch.profiler Chrome trace.
+DEVICE_CATEGORIES = frozenset({"kernel", "gpu_memcpy", "gpu_memset"})
+DAMSM_PARITY_BATCH = 8
+TRAIN_LAUNCHES = dict(affine_mask_relu=14, affine_mask_relu_backward=14,
+                      words_similarity_forward=1,
+                      words_similarity_backward_dr=1)
+
+
+def trainer_config(data_dir: str):
+    """cfg/bird.yml in bf16 with both kernel families on, reading the demo
+    corpus (two captions per image) with random frozen encoders."""
+    from eegan_tpu_torch.config import apply_overrides
+
+    return apply_overrides(bird_config("bfloat16"), [
+        f"DATA_DIR={data_dir}", "TEXT.CAPTIONS_PER_IMAGE=2",
+        "TEXT.DAMSM_NAME=''", "RUNTIME.ALLOW_RANDOM_ENCODERS=true"])
+
+
+def counted(fn, rows):
+    """``fn``, appending each call's kernel launches to ``rows``."""
+    def call(*args):
+        before = read_counts()
+        out = fn(*args)
+        after = read_counts()
+        rows.append({k: after[k] - before[k] for k in after})
+        return out
+    return call
+
+
+def optimizer_moments(state):
+    """Every Adam moment and step count of the state, by (optimizer,
+    parameter index, key)."""
+    out = {}
+    for name, opt in (("g", state.g_opt),
+                      *((f"d{i}", o) for i, o in enumerate(state.d_opts))):
+        params = [p for g in opt.param_groups for p in g["params"]]
+        for j, p in enumerate(params):
+            for key, value in opt.state[p].items():
+                out[(name, j, key)] = value
+    return out
+
+
+def trace_device_busy(path: str, steps: int):
+    """(ms per step, operations per step) of the device in a torch.profiler
+    Chrome trace of ``steps`` steps: the union of its kernels', copies' and
+    fills' intervals."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("ph") == "X" and e.get("cat") in DEVICE_CATEGORIES)
+    if not spans:
+        fail(f"the trace {path} holds no device activity; categories "
+             f"{sorted({str(e.get('cat')) for e in events})[:20]}")
+    busy_us, end = 0.0, float("-inf")
+    for t0, t1 in spans:
+        start = max(t0, end)
+        if t1 > start:
+            busy_us += t1 - start
+        end = max(end, t1)
+    return busy_us / 1e3 / steps, len(spans) / steps
+
+
+def phase_trainer(tmp: str):
+    """(14) Trainer on an on-disk demo corpus (cfg/bird.yml, B=32, bf16,
+    8 spawned data workers) for one epoch of 12 iterations; launches per
+    iteration and per save_images, images/s over iterations 3-12, the
+    host's wait on the pipeline, checkpoint save time and size; then a
+    second Trainer resumes from the checkpoint (same step, bitwise-equal
+    Adam moments) and takes 5 finite steps, the last 3 traced by the
+    trainer's own profiler (the device's busy time per iteration)."""
+    import torch
+
+    from eegan_tpu_torch.data.demo_corpus import build_corpus
+    from eegan_tpu_torch.training.trainer import Trainer
+
+    t0 = time.perf_counter()
+    root = build_corpus(os.path.join(tmp, "data"), n_files=CORPUS_FILES)
+    corpus_s = time.perf_counter() - t0
+    config = trainer_config(root)
+    out = os.path.join(tmp, "run")
+    t0 = time.perf_counter()
+    trainer = Trainer(config, out, seed=SEED)
+    init_s = time.perf_counter() - t0
+    iters = len(trainer.pipeline)
+    if iters < 4:
+        fail(f"trainer epoch of {iters} iterations, expected at least 4")
+
+    per_iter, per_save, saves, ips = [], [], [], []
+    trainer.train_step = counted(trainer.train_step, per_iter)
+    save_images = counted(trainer.save_images, per_save)
+
+    def save_images_at_epoch_end(epoch):
+        torch.cuda.synchronize()  # the epoch's steps are done: read the timer
+        ips.append(trainer.timer.images_per_sec)
+        save_images(epoch)
+
+    trainer.save_images = save_images_at_epoch_end
+    save_state = trainer.ckpt.save_state
+
+    def timed_save_state(epoch, state):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        path = save_state(epoch, state)
+        saves.append(dict(s=time.perf_counter() - t,
+                          bytes=os.path.getsize(path)))
+        return path
+
+    trainer.ckpt.save_state = timed_save_state
+
+    zero_counts()
+    t0 = time.perf_counter()
+    trainer.train(max_epochs=1)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    total = read_counts()
+
+    want_iter = launches_of(**TRAIN_LAUNCHES)
+    want_save = launches_of(affine_mask_relu=14)
+    if trainer.state.step != iters or len(per_iter) != iters:
+        fail(f"trainer took {trainer.state.step} steps, expected {iters}")
+    if any(c != want_iter for c in per_iter):
+        fail(f"trainer launches per iteration {per_iter}, expected "
+             f"{want_iter}")
+    if per_save != [want_save]:
+        fail(f"save_images launches {per_save}, expected [{want_save}]")
+    if total != {k: iters * want_iter[k] + want_save[k] for k in total}:
+        fail(f"trainer launches {total} over the epoch")
+    metrics = {k: float(v) for k, v in trainer.last_metrics.items()}
+    bad = [k for k, v in metrics.items() if not math.isfinite(v)]
+    if bad:
+        fail(f"trainer: non-finite metrics {bad}")
+    for rel in ("Image/sampling_text.txt", "Image/epoch_1_256.png",
+                "Model/netG_1.pth", "Model/attr_enhance_1.pth",
+                "Model/state/1.pt", "writer/metrics.jsonl"):
+        if not os.path.isfile(os.path.join(out, rel)):
+            fail(f"trainer did not write {rel}")
+    if len(saves) != 1:
+        fail(f"trainer saved {len(saves)} full states, expected 1")
+    wait_ms = trainer.data_wait_s / trainer.data_waits * 1e3
+    moments = optimizer_moments(trainer.state)
+    step, workers = trainer.state.step, trainer.pipeline.num_workers
+    trainer.close()
+    iter_ms = trainer.batch_size / ips[0] * 1e3
+
+    resumed = Trainer(config, out, seed=SEED)
+    if resumed.start_epoch != 2 or resumed.state.step != step:
+        fail(f"resume: epoch {resumed.start_epoch}, step "
+             f"{resumed.state.step}; expected 2, {step}")
+    got = optimizer_moments(resumed.state)
+    if set(got) != set(moments) or not all(
+            torch.equal(got[k].cpu(), moments[k].cpu()) for k in moments):
+        fail("resume: the optimizer moments differ from the saved run's")
+    zero_counts()
+    resumed.train(max_epochs=1, max_iters_per_epoch=RESUMED_ITERS,
+                  profile_steps=TRACED_STEPS)
+    torch.cuda.synchronize()
+    resumed_counts = read_counts()
+    resumed_metrics = {k: float(v)
+                       for k, v in resumed.last_metrics.items()}
+    resumed.close()
+    if resumed.state.step != step + RESUMED_ITERS or not all(
+            math.isfinite(v) for v in resumed_metrics.values()):
+        fail(f"resumed step {resumed.state.step}, metrics {resumed_metrics}")
+    if resumed_counts != {k: RESUMED_ITERS * want_iter[k] + want_save[k]
+                          for k in resumed_counts}:
+        fail(f"resumed epoch launches {resumed_counts}")
+    busy_ms, ops = trace_device_busy(
+        os.path.join(out, "profile", "trace.json"), TRACED_STEPS)
+
+    result = dict(
+        config="cfg/bird.yml + RUNTIME.PALLAS_AFFINE=true "
+               "+ RUNTIME.PALLAS_DAMSM=true, demo corpus",
+        train_images=len(trainer.dataset), batch=trainer.batch_size,
+        dtype="bfloat16", data_workers=workers, iterations=iters,
+        images_per_s=ips[0], timed_iterations=iters - trainer.timer.warmup,
+        ms_per_iteration=iter_ms, data_wait_ms_per_step=wait_ms,
+        device_busy_ms_per_iteration=busy_ms,
+        device_ops_per_iteration=ops, traced_iterations=TRACED_STEPS,
+        idle_share_vs_untraced_iteration=1.0 - busy_ms / iter_ms,
+        epoch_s=epoch_s, init_s=init_s, corpus_s=corpus_s,
+        checkpoint_save_s=saves[0]["s"], checkpoint_bytes=saves[0]["bytes"],
+        launches_per_iteration=per_iter[0],
+        launches_save_images=per_save[0], launches_epoch=total,
+        errG_total=metrics["errG/total"],
+        resumed_errG_total=resumed_metrics["errG/total"])
+    log(f"phase 14 ok: Trainer {iters} iterations B={trainer.batch_size} "
+        f"bf16, {workers} workers: {ips[0]} images/s ({iter_ms} ms per "
+        f"iteration, device busy {busy_ms} ms of it in {TRACED_STEPS} traced "
+        f"iterations), host waits {wait_ms} ms per step on the pipeline; "
+        f"launches per iteration {want_iter}, per save_images {want_save}; "
+        f"checkpoint {saves[0]['bytes']} bytes in {saves[0]['s']} s; resumed "
+        f"at epoch 2, step {step}, moments bitwise equal, "
+        f"{RESUMED_ITERS} finite steps")
+    return result
+
+
+def run_cli(args):
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f"{' '.join(args[:1])} exit {proc.returncode}:\n"
+             f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    return proc.stdout
+
+
+def phase_clis(tmp: str):
+    """(15) pretrain_damsm --synthetic at full width, then train
+    --synthetic loading its encoders through the directory branch."""
+    common = ["--set", f"SAVE_DIR={tmp}",
+              "--set", "RUNTIME.PALLAS_AFFINE=true",
+              "--set", "RUNTIME.PALLAS_DAMSM=true"]
+    t0 = time.perf_counter()
+    run_cli(["eegan_tpu_torch.pretrain_damsm", "--synthetic", "--epochs",
+             "1", "--max_iters", "2", "--output_dir", "damsm", *common])
+    pretrain_s = time.perf_counter() - t0
+    frozen = os.path.join(tmp, "damsm", "Model", "frozen_encoders")
+    for name in ("text_encoder.pth", "image_encoder.pth"):
+        if not os.path.isfile(os.path.join(frozen, name)):
+            fail(f"pretrain_damsm did not write {name}")
+    t0 = time.perf_counter()
+    stdout = run_cli(
+        ["eegan_tpu_torch.train", "--synthetic", "--max_epochs", "1",
+         "--max_iters", "2", "--output_dir", "run",
+         "--set", f"TEXT.DAMSM_NAME={os.path.join(tmp, 'damsm', 'Model')}",
+         *common])
+    train_s = time.perf_counter() - t0
+    if f"loading DAMSM encoders from directory {frozen}" not in stdout:
+        fail("train did not load the pretrained encoders from their "
+             "directory")
+    for rel in ("Model/state/1.pt", "Model/netG_1.pth",
+                "Image/epoch_1_256.png"):
+        if not os.path.isfile(os.path.join(tmp, "run", rel)):
+            fail(f"train CLI did not write {rel}")
+    log(f"phase 15 ok: pretrain_damsm ({pretrain_s:.1f} s) wrote the "
+        f"encoders, train loaded them from {frozen} and trained 2 "
+        f"iterations ({train_s:.1f} s)")
+    return dict(pretrain_s=pretrain_s, train_s=train_s)
+
+
+def damsm_gaps(sides, lr, b1, select):
+    """Gaps between two DAMSM steps from the same start (``sides``: two
+    (models, optimizers) pairs, the reference first), over the parameters
+    ``select(encoder, name)`` picks: the relative L2 gap of the gradients
+    each Adam took (its first moments over 1 - b1) over them all and at the
+    worst tensor, the largest parameter gap, and the share of parameter
+    entries more than lr/100 apart."""
+    import torch
+
+    grads, params = [], []
+    for models, opts in sides:
+        g, p = {}, {}
+        for j, enc in enumerate(("text_encoder", "image_encoder")):
+            for k, t in getattr(models, enc).named_parameters():
+                if select(enc, k):
+                    g[enc, k] = (opts[j].state[t]["exp_avg"].cpu().double()
+                                 / (1 - b1))
+                    p[enc, k] = t.detach().cpu()
+        grads.append(g)
+        params.append(p)
+    (want, got), keys = grads, list(grads[0])
+    flat = [torch.cat([d[k].flatten() for k in keys]) for d in grads]
+    errs = [(params[1][k] - params[0][k]).abs() for k in keys]
+    return dict(
+        grad_rel_l2=float((flat[1] - flat[0]).norm() / flat[0].norm()),
+        grad_rel_l2_worst_tensor=max(
+            float((got[k] - want[k]).norm() / want[k].norm()) for k in keys),
+        param_max_abs_err=max(float(e.max()) for e in errs),
+        param_share_beyond_lr_100=(sum(int((e > lr / 100).sum())
+                                       for e in errs)
+                                   / sum(e.numel() for e in errs)))
+
+
+def phase_damsm_parity():
+    """(15) one float32 DAMSM pretraining step on cuda (TF32 off) against
+    the same step on the CPU, full width, B=8, dropout 0 (the two devices
+    draw other masks), the step launching no kernel (the plain words loss,
+    as in JAX). Metrics within 1e-3 relative. The text encoder and the
+    image encoder's heads (``emb_*``, which the losses' gradient reaches
+    first): the gradients each Adam took (from its moments) within 1e-3
+    relative L2 and 5e-2 at the worst tensor, parameters within PERF.md
+    §2's bar for an Adam step (2·ENCODER_LR, at most 1% of the entries
+    beyond ENCODER_LR/100); the text gradient's norm at most RNN_GRAD_CLIP
+    on both devices. The Inception trunk: its gradients come back through
+    cancelling sums, so a change of rounding moves single tensors' by up
+    to about 1e-2, and cuDNN moves the trunk's by a few per cent; with
+    cuDNN it is held to 1e-1 relative L2 and 2·lr, and the same step on
+    cuda with cuDNN off holds the whole image encoder to the heads'
+    bars."""
+    import torch
+
+    from eegan_tpu_torch.data.synthetic import synthetic_batch
+    from eegan_tpu_torch.models.factory import build_models, randomize_
+    from eegan_tpu_torch.training.damsm_trainer import make_damsm_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    config = bird_config("float32")
+    lr, clip = config.TRAIN.ENCODER_LR, config.TRAIN.RNN_GRAD_CLIP
+    b1 = 0.5  # the DAMSM Adam's betas are (0.5, 0.999)
+    batch = synthetic_batch(config, DAMSM_PARITY_BATCH, seed=SEED,
+                            n_words=N_WORDS)
+    sides, metrics = {}, {}
+    for side, device, cudnn in (("cpu", "cpu", True), ("cuda", "cuda", True),
+                                ("cuda_no_cudnn", "cuda", False)):
+        models = build_models(config, N_WORDS, device)
+        for i, m in enumerate((models.text_encoder, models.image_encoder)):
+            randomize_(m, SEED + 300 + i)
+        models.text_encoder.drop.p = 0.0
+        step, init_opt = make_damsm_train_step(config, models)
+        opts = init_opt(models.text_encoder, models.image_encoder)
+        zero_counts()
+        with torch.backends.cudnn.flags(enabled=cudnn, allow_tf32=False):
+            metrics[side] = {k: float(v)
+                             for k, v in step(opts, batch).items()}
+        if read_counts() != launches_of():
+            fail(f"the DAMSM step on {side} launched {read_counts()}")
+        sides[side] = (models, opts)
+    rel = {side: {k: abs(m[k] - v) / abs(v)
+                  for k, v in metrics["cpu"].items()}
+           for side, m in metrics.items() if side != "cpu"}
+    if any(r > 1e-3 for side_rel in rel.values()
+           for r in side_rel.values()):
+        fail(f"DAMSM step cuda vs cpu: {metrics}")
+
+    heads = lambda enc, k: enc == "image_encoder" and k.startswith("emb_")
+    groups = (("cuda", "text_encoder",
+               lambda enc, k: enc == "text_encoder", True),
+              ("cuda", "image_heads", heads, True),
+              ("cuda", "image_trunk",
+               lambda enc, k: enc == "image_encoder" and not heads(enc, k),
+               False),
+              ("cuda_no_cudnn", "image_encoder",
+               lambda enc, k: enc == "image_encoder", True))
+    gaps = {}
+    for side, group, select, strict in groups:
+        g = damsm_gaps((sides["cpu"], sides[side]), lr, b1, select)
+        gaps[f"{side}/{group}"] = g
+        if strict:
+            bad = (g["grad_rel_l2"] > 1e-3
+                   or g["grad_rel_l2_worst_tensor"] > 5e-2
+                   or g["param_share_beyond_lr_100"] > 0.01)
+        else:
+            bad = g["grad_rel_l2"] > 1e-1
+        if bad or g["param_max_abs_err"] > 2 * lr + 1e-6:
+            fail(f"DAMSM step {side} vs cpu, {group}: {g}")
+    norms = {}
+    for side in ("cpu", "cuda"):
+        models, opts = sides[side]
+        norms[side] = float(torch.sqrt(sum(
+            (opts[0].state[p]["exp_avg"].double() / (1 - b1)).square().sum()
+            for p in models.text_encoder.parameters())))
+    if not all(v <= clip * (1 + 1e-4) for v in norms.values()):
+        fail(f"DAMSM step text gradient norms {norms}, above the clip {clip}")
+    log(f"phase 15 ok: float32 DAMSM step (bird.yml, B={DAMSM_PARITY_BATCH})"
+        f" on cuda against the CPU step: metric rel err {rel}; text "
+        f"gradient norms {norms}; gaps {gaps}")
+    return dict(metric_rel_err=rel, metrics=metrics["cuda"],
+                text_grad_norm=norms, **gaps)
 
 
 def main() -> None:
@@ -1153,6 +1542,11 @@ def main() -> None:
     fwd_rows, bwd_rows, damsm_rows, train_ms, train_runs = phase_train_times(
         train_ngf, train)
     train_breakdown = phase_train_breakdown(train, train_ms)
+    del train
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = phase_trainer(os.path.join(tmp, "trainer"))
+        clis = phase_clis(os.path.join(tmp, "clis"))
+    damsm_parity = phase_damsm_parity()
 
     card = {"gpu": name, "nvidia_smi": smi}
     step_line = {"sample_step": {
@@ -1167,9 +1561,11 @@ def main() -> None:
         "images_per_s": TRAIN_BATCH / train_ms * 1e3, "runs_ms": train_runs,
         "launches_per_step": bf16_train["launches_per_step"],
         "float32_parity": parity, **card}}
+    trainer_line = {"trainer": {**trainer, **card}}
     results = {"affine_launches": rows, "affine_train_launches": fwd_rows,
                "affine_backward_launches": bwd_rows,
                "damsm": damsm_rows, **step_line, **train_line,
+               **trainer_line, "clis": clis, "damsm_step_parity": damsm_parity,
                "breakdown": breakdown, "train_breakdown": train_breakdown,
                "bf16_train_metrics": bf16_train["metrics"],
                "checks": {"affine_max_abs_err": {"float32": err_f32,
@@ -1187,6 +1583,7 @@ def main() -> None:
     log(json.dumps(step_line))
     log(json.dumps({k: v for k, v in train_line["train_step"].items()
                     if k != "float32_parity"}))
+    log(json.dumps(trainer_line))
     for key, value in (("breakdown", breakdown),
                        ("train_breakdown", train_breakdown)):
         log(json.dumps({key: {k: v for k, v in value.items()
@@ -1245,6 +1642,12 @@ def main() -> None:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": "operations",
             "library_ms": None, "timed": timed_damsm})
+    for row in kernels["kernels"]:
+        row["launches_trainer_per_iteration"] = \
+            trainer["launches_per_iteration"][row["name"]]
+        row["launches_trainer_save_images"] = \
+            trainer["launches_save_images"][row["name"]]
+        row["launches_trainer_epoch"] = trainer["launches_epoch"][row["name"]]
     log(json.dumps(kernels))
     log(smi)
     log(json.dumps({"ok": True, "device": {

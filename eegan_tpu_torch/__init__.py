@@ -7,12 +7,18 @@ package so each counterpart is easy to find.
 
 Layout:
     config        typed config tree + strict YAML merge (copy of eegan_tpu's)
-    data          caption prep, caption pickle loading, attribute parsing
-    models        generator, AttrEnhance, text encoder as torch nn.Modules
+    data          caption prep, attribute parsing, the CUB datasets and
+                  transforms, the native resize, the batching pipeline and
+                  device prefetch, synthetic data, the demo corpus
+    models        generator, AttrEnhance, discriminators, text and image
+                  encoders as torch nn.Modules
     ops           hand-written CUDA kernels with their plain PyTorch versions
-    training      the sampling step
-    utils         image IO, weight conversion from the JAX trees
+    training      the train and sampling steps, the trainer, checkpoints,
+                  logging, DAMSM pretraining
+    utils         image IO, weight conversion (JAX trees, AttnGAN .pth)
     sample        the sampling CLI (``python -m eegan_tpu_torch.sample``)
+    train         the training CLI (``python -m eegan_tpu_torch.train``)
+    pretrain_damsm  the DAMSM pretraining CLI
 
 Tensors run NCHW in ``torch.channels_last`` memory format, so the kernels see
 the NHWC byte order of the JAX package. Entry points run on ``cuda`` unless

@@ -44,11 +44,19 @@ class TextEncoder(nn.Module):
         self.rnn = rnn_cls(ninput, nhidden // self.num_directions, 1,
                            batch_first=True, bidirectional=bidirectional)
 
-    def forward(self, captions, cap_lens) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, captions, cap_lens, generator=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """captions: (B, T) ints; cap_lens: (B,) ints in [1, T] (any device;
-        packing reads them on the host)."""
+        packing reads them on the host). In train mode the embeddings take
+        dropout, its mask drawn from ``generator`` (a ``torch.Generator`` on
+        the captions' device; the global RNG when None)."""
         b, t = captions.shape
-        emb = self.drop(self.encoder(captions.long()))
+        emb = self.encoder(captions.long())
+        p = self.drop.p
+        if self.training and p > 0:
+            keep = torch.rand(emb.shape, generator=generator,
+                              device=emb.device) >= p
+            emb = emb * keep / (1.0 - p)
         lens = torch.as_tensor(cap_lens).to("cpu", torch.int64)
         packed = pack_padded_sequence(emb, lens, batch_first=True,
                                       enforce_sorted=False)

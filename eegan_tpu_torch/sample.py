@@ -7,7 +7,7 @@ Sources (reference `sample.py:31-51,272-324`):
   --from_txt      free-text file, one caption per line; attributes parsed
                   live with the lexicon tagger
   --from_code     hardcoded example captions
-  --from_dataset  not in the port yet (it waits for the data slice)
+  --from_dataset  not in the port's CLI yet (ROADMAP.md Queue 1, item 3)
 
 Weights come from reference-layout ``.pth`` files: ``--netG`` (and
 ``--attr_enhance``, by default the netG path with ``netG`` replaced by
@@ -69,8 +69,9 @@ def parse_args(argv=None):
                         help="config override, e.g. --set GAN.GF_DIM=16")
     args = parser.parse_args(argv)
     if args.from_dataset:
-        parser.error("--from_dataset is not in the port yet (it waits for "
-                     "the data slice); use --from_code or --from_txt")
+        parser.error("--from_dataset is not in the port's CLI yet "
+                     "(ROADMAP.md Queue 1, item 3); use --from_code or "
+                     "--from_txt")
     if args.model_dir:
         parser.error("--model_dir (JAX checkpoints) is not in the port yet; "
                      "pass reference .pth files with --netG")

@@ -100,6 +100,15 @@ def _check_runtime(config: Config, ablate) -> None:
         raise ValueError(f"unknown ablate keys {sorted(unknown)}")
 
 
+def _zero_missing_grads(params) -> None:
+    """A parameter off the loss's path gets a zero gradient, so Adam
+    advances its step count and decays its second moment as optax does
+    (``torch.optim.Adam`` skips a parameter whose grad is None)."""
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+
+
 def _gradient_penalty(disc, img, sent, is_class_scale: bool) -> torch.Tensor:
     """MAGP of one batch (chunk): the input gradients of sum(D(img, sent))
     with create_graph, so the penalty backpropagates into D."""
@@ -177,6 +186,7 @@ def build_train_step_fn(config: Config, models: ModelBundle,
             metrics.update(real_class=err_real_c, fake_class=err_fake_c,
                            unpair_class=err_unpair_c)
         loss.backward()
+        _zero_missing_grads(params)
         if tr.D_GRAD_CLIP > 0:
             clip_by_global_norm_(params, tr.D_GRAD_CLIP)
         opt.step()
@@ -197,6 +207,8 @@ def build_train_step_fn(config: Config, models: ModelBundle,
             gp_c = _gradient_penalty(disc, img_c, sent_c, is_class_scale)
             (gp_c / chunks).backward()
             gps.append(gp_c.detach())
+        # The class head is off the penalty's path.
+        _zero_missing_grads(params)
         if tr.D_GRAD_CLIP > 0:
             clip_by_global_norm_(params, tr.D_GRAD_CLIP)
         opt.step()
@@ -308,9 +320,7 @@ def build_train_step_fn(config: Config, models: ModelBundle,
                                        d_sent, sent, words, batch,
                                        class_labels)
         total.backward(inputs=params)
-        for p in params:
-            if p.grad is None:  # off the path: a zero gradient, as in JAX
-                p.grad = torch.zeros_like(p)
+        _zero_missing_grads(params)
         state.g_opt.step()
         metrics.update({k: v.detach() for k, v in g_aux.items()})
 

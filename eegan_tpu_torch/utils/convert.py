@@ -1,5 +1,9 @@
 """Weights into the port: from the JAX package's trees and from ``.pth`` files.
 
+:func:`load_damsm_encoders` loads AttnGAN's ``text_encoder*.pth`` /
+``image_encoder*.pth`` (the counterpart of
+``eegan_tpu/utils/torch_convert.py::load_damsm_encoders``).
+
 The port's modules carry the reference EE-GAN / AttnGAN state-dict key
 names and torch layouts, so a reference ``.pth`` loads with
 ``load_state_dict`` once the DataParallel ``module.`` prefix is stripped
@@ -17,6 +21,7 @@ into the port's state dicts — the inverse of
 
 from __future__ import annotations
 
+import os
 from collections.abc import Mapping
 from typing import Dict, Iterator, Optional, Tuple
 
@@ -31,6 +36,41 @@ def load_state_dict(path: str) -> Dict[str, torch.Tensor]:
     if hasattr(sd, "state_dict"):
         sd = sd.state_dict()
     return {k.removeprefix("module."): v for k, v in sd.items()}
+
+
+def _load_reference(module: torch.nn.Module, sd: Dict[str, torch.Tensor],
+                    what: str) -> None:
+    """A reference state dict into ``module``. Keys the module lacks are
+    ignored, as the JAX package's converter ignores them; a missing key
+    raises, except BN's ``num_batches_tracked`` (older torch wrote none);
+    a shape mismatch raises."""
+    own = module.state_dict()
+    missing = [k for k in own if k not in sd
+               and not k.endswith("num_batches_tracked")]
+    if missing:
+        raise KeyError(f"{what}: torch keys {missing[:5]} missing; have e.g. "
+                       f"{list(sd)[:5]}")
+    module.load_state_dict({k: v for k, v in sd.items() if k in own},
+                           strict=False)
+
+
+def load_damsm_encoders(text_pth: str, frozen):
+    """Load both DAMSM encoders from AttnGAN ``.pth`` files into
+    ``frozen``'s modules (``training/state.FrozenEncoders``) and return it.
+
+    The image encoder's path follows the reference's substitution rule
+    text_encoder -> image_encoder (reference `train.py:242`); when that file
+    is missing the image encoder keeps its weights, with a warning, as in
+    the JAX package.
+    """
+    _load_reference(frozen.text_encoder, load_state_dict(text_pth), text_pth)
+    img_pth = text_pth.replace("text_encoder", "image_encoder")
+    if os.path.isfile(img_pth):
+        _load_reference(frozen.image_encoder, load_state_dict(img_pth),
+                        img_pth)
+    else:
+        print(f"WARNING: {img_pth} not found — image encoder stays random")
+    return frozen
 
 
 def _leaves(tree, path: Tuple[str, ...] = ()
