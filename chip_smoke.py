@@ -41,10 +41,10 @@ sampling phases:
 9. the DAMSM forward, dR and dW kernels against the plain version and its
    autograd at (Bi, Bt, S, L, D) = (32, 32, 289, 20, 256), (5, 3, 37, 7, 64)
    and (4, 4, 289, 20, 256) with a class mask; dW exactly 0 at padded words;
-   the forward and dR also at shapes that stress their per-pair split (an
-   odd Bi, Bt = 1, L = 1, every text at full length, one-word texts beside
-   full ones, L = 32, a text with no valid word), and bitwise the same in
-   two launches; the sims within 1e-3 + 1e-4 relative, the gradients within
+   all three also at shapes that stress their per-pair split (an odd Bi,
+   Bt = 1, L = 1, every text at full length, one-word texts beside full
+   ones, L = 32, a text with no valid word), and bitwise the same in two
+   launches; the sims within 1e-3 + 1e-4 relative, the gradients within
    1e-4 of each case's largest |gradient| plus 2e-3 relative;
 10. the float32 train step on cuda (TF32 off) against the same step on the
    CPU, full width, B=4, same weights, batch and noise: metrics, updated
@@ -79,7 +79,12 @@ kernel families on):
    relative L2 and the parameters within PERF.md §2's bar for an Adam
    step, for the text encoder and the image encoder's heads, and for the
    whole image encoder in a second cuda step with cuDNN off (with cuDNN
-   the Inception trunk's gradients are held to 1e-1 relative L2).
+   the Inception trunk's gradients are held to 1e-1 relative L2); then
+   the trunk's gradients against the same step in float64 on the CPU:
+   with cuDNN off, and with cuDNN's conv passes called from an explicit
+   autograd Function (cuDNN off for one kind of operation at a time),
+   within twice the CPU float32 step's distance; the native route's
+   distance and four convs' float32 passes are reported.
 
 The last lines are one JSON ``kernels`` line, the card's name and power
 limit as nvidia-smi prints them, and ``{"ok": true, "device": {...}}``;
@@ -615,9 +620,9 @@ PARITY_BATCH = 4  # the float32 cuda-vs-CPU step
 BF16_STEPS = 3
 DAMSM_SHAPES = ((32, 32, 289, 20, 256), (5, 3, 37, 7, 64),
                 (4, 4, 289, 20, 256))  # (Bi, Bt, S, L, D)
-# The forward and dR at shapes that stress their per-pair split (an odd Bi,
-# one text, one word, every text at full length, one-word texts beside full
-# ones, L = 32, a text with no valid word), with the lengths ("full",
+# The forward, dR and dW at shapes that stress their per-pair split (an odd
+# Bi, one text, one word, every text at full length, one-word texts beside
+# full ones, L = 32, a text with no valid word), with the lengths ("full",
 # "mixed", "empty" or random).
 DR_STRESS = (((7, 5, 289, 20, 256), None), ((5, 1, 289, 20, 256), None),
              ((3, 4, 37, 1, 64), None), ((4, 6, 289, 20, 256), "full"),
@@ -729,7 +734,7 @@ def phase_damsm_kernels():
     """(b) kernels 3-5 against the plain version and its autograd: each
     kernel directly (a random upstream dsim) at every shape, and the words
     loss through the autograd Function (with a class mask on the last);
-    then dR at the shapes of DR_STRESS, twice, bitwise the same."""
+    then all three at the shapes of DR_STRESS, twice, bitwise the same."""
     import torch
 
     from eegan_tpu_torch.losses.damsm import words_loss
@@ -818,27 +823,31 @@ def phase_damsm_kernels():
         dsim = torch.randn((Bi, Bt), generator=gen, device="cuda") / Bi
         sims = words_similarity_forward(regions, words, lens)
         sims_again = words_similarity_forward(regions, words, lens)
-        got = words_similarity_backward_dr(regions, words, lens, dsim)
-        again = words_similarity_backward_dr(regions, words, lens, dsim)
+        got = (words_similarity_backward_dr(regions, words, lens, dsim),
+               words_similarity_backward_dw(regions, words, lens, dsim))
+        again = (words_similarity_backward_dr(regions, words, lens, dsim),
+                 words_similarity_backward_dw(regions, words, lens, dsim))
         r = regions.detach().requires_grad_(True)
-        want_sims = words_similarity_reference(r, words, lens)
-        want = torch.autograd.grad(want_sims, r, dsim)[0]
+        w = words.detach().requires_grad_(True)
+        want_sims = words_similarity_reference(r, w, lens)
+        want = torch.autograd.grad(want_sims, (r, w), dsim)
         torch.cuda.synchronize()
         what = f"damsm {(Bi, Bt, S, L, D)} lengths {kind or 'random'}"
         check_sims(what, sims, want_sims.detach())
         if not torch.equal(sims, sims_again):
             fail(f"{what}: sims differ between two launches on the same "
                  f"inputs")
-        check_grad(what, "d_regions", got, want)
-        if not torch.equal(got, again):
-            fail(f"{what}: dR differs between two launches on the same "
-                 f"inputs")
+        check_grads(what, got, want, lens, L)
+        for name, g, a in zip(("dR", "dW"), got, again):
+            if not torch.equal(g, a):
+                fail(f"{what}: {name} differs between two launches on the "
+                     f"same inputs")
     set_counts(saved)
     log(f"phase 9 ok: DAMSM kernels match the plain version at "
-        f"{DAMSM_SHAPES}, the forward and dR also at "
-        f"{[(s, k or 'random') for s, k in DR_STRESS]} and bitwise the same "
-        f"in two launches; max abs err {worst}, over the case's largest "
-        f"|gradient| {worst_rel}; padded words get dW == 0")
+        f"{DAMSM_SHAPES} and at "
+        f"{[(s, k or 'random') for s, k in DR_STRESS]}, bitwise the same "
+        f"in two launches there; max abs err {worst}, over the case's "
+        f"largest |gradient| {worst_rel}; padded words get dW == 0")
     return dict(worst, **{f"{k}_over_scale": v for k, v in worst_rel.items()})
 
 
@@ -1409,6 +1418,116 @@ def damsm_gaps(sides, lr, b1, select):
                                    / sum(e.numel() for e in errs)))
 
 
+CUDNN_KINDS = ("conv_forward", "conv_dgrad", "conv_wgrad", "batch_norm")
+# The kinds turned off together, one run each (the conv's two backward
+# passes also together).
+CUDNN_OFF = (("conv_forward",), ("conv_dgrad",), ("conv_wgrad",),
+             ("conv_dgrad", "conv_wgrad"), ("batch_norm",))
+
+
+def cudnn_per_kind(on):
+    """A context in which the DAMSM encoders' convs (``layers.Conv2d``: the
+    forward, the data gradient and the weight gradient apart) and batch
+    norms (``inception.BasicConv2d``) take cuDNN or not, as ``on`` (kind ->
+    bool, CUDNN_KINDS) says; TF32 off throughout. A conv forward without
+    cuDNN gives its output the input's memory format (channels_last), as
+    cuDNN's does, so that the later operations run as they would. A
+    diagnostic: it says which kind of operation moves the trunk's
+    gradients."""
+    import contextlib
+    from unittest import mock
+
+    import torch
+    import torch.nn.functional as F
+
+    from eegan_tpu_torch.models import inception, layers
+
+    def flags(kind):
+        return torch.backends.cudnn.flags(enabled=on[kind], allow_tf32=False)
+
+    class Conv(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, w, stride, padding):
+            ctx.save_for_backward(x, w)
+            ctx.geometry = (stride, padding)
+            with flags("conv_forward"):
+                y = F.conv2d(x, w, None, stride, padding)
+            return y.contiguous(memory_format=torch.channels_last
+                                if x.is_contiguous(
+                                    memory_format=torch.channels_last)
+                                else torch.contiguous_format)
+
+        @staticmethod
+        def backward(ctx, dy):
+            x, w = ctx.saved_tensors
+            stride, padding = ctx.geometry
+            grads = [None, None]
+            for j, kind in enumerate(("conv_dgrad", "conv_wgrad")):
+                if ctx.needs_input_grad[j]:
+                    with flags(kind):
+                        grads[j] = torch.ops.aten.convolution_backward(
+                            dy, x, w, None, stride, padding, (1, 1), False,
+                            (0, 0), 1, [j == 0, j == 1, False])[j]
+            return grads[0], grads[1], None, None
+
+    def conv_forward(self, x):
+        if self.bias is not None:
+            raise ValueError("cudnn_per_kind takes convs without a bias")
+        dt = self.compute_dtype
+        return Conv.apply(x.to(dt), self.weight.to(dt), self.stride,
+                          self.padding)
+
+    def basic_forward(self, x):
+        y = self.conv(x).to(self.bn.weight.dtype)
+        with flags("batch_norm"):
+            y = self.bn(y)
+        return F.relu(y)
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(layers.Conv2d, "forward",
+                                          conv_forward))
+    stack.enter_context(mock.patch.object(inception.BasicConv2d, "forward",
+                                          basic_forward))
+    return stack
+
+
+def damsm_step_run(config, batch, device, cudnn=True, float64=False,
+                   **cudnn_flags):
+    """One DAMSM step from the seed's weights, dropout 0: (models,
+    optimizers, metrics). ``cudnn``: on or off for the whole step, or a
+    CUDNN_KINDS -> bool dict (``cudnn_per_kind``); ``float64``: the
+    encoders in float64 (the yardstick); ``cudnn_flags``: more of
+    ``torch.backends.cudnn.flags``'s arguments (TF32 is off)."""
+    import contextlib
+
+    import torch
+
+    from eegan_tpu_torch.models.factory import (
+        build_models,
+        randomize_,
+        to_float64_,
+    )
+    from eegan_tpu_torch.training.damsm_trainer import make_damsm_train_step
+
+    models = build_models(config, N_WORDS, device)
+    for i, m in enumerate((models.text_encoder, models.image_encoder)):
+        randomize_(m, SEED + 300 + i)
+        if float64:
+            to_float64_(m)
+    models.text_encoder.drop.p = 0.0
+    step, init_opt = make_damsm_train_step(config, models)
+    opts = init_opt(models.text_encoder, models.image_encoder)
+    zero_counts()
+    context = (cudnn_per_kind(cudnn) if isinstance(cudnn, dict)
+               else contextlib.nullcontext())
+    with torch.backends.cudnn.flags(enabled=bool(cudnn), allow_tf32=False,
+                                    **cudnn_flags), context:
+        metrics = {k: float(v) for k, v in step(opts, batch).items()}
+    if read_counts() != launches_of():
+        fail(f"the DAMSM step on {device} launched {read_counts()}")
+    return models, opts, metrics
+
+
 def phase_damsm_parity():
     """(15) one float32 DAMSM pretraining step on cuda (TF32 off) against
     the same step on the CPU, full width, B=8, dropout 0 (the two devices
@@ -1419,17 +1538,22 @@ def phase_damsm_parity():
     relative L2 and 5e-2 at the worst tensor, parameters within PERF.md
     §2's bar for an Adam step (2·ENCODER_LR, at most 1% of the entries
     beyond ENCODER_LR/100); the text gradient's norm at most RNN_GRAD_CLIP
-    on both devices. The Inception trunk: its gradients come back through
-    cancelling sums, so a change of rounding moves single tensors' by up
-    to about 1e-2, and cuDNN moves the trunk's by a few per cent; with
-    cuDNN it is held to 1e-1 relative L2 and 2·lr, and the same step on
-    cuda with cuDNN off holds the whole image encoder to the heads'
-    bars."""
+    on both devices; and the same step on cuda with cuDNN off holds the
+    whole image encoder to those bars. The Inception trunk with cuDNN is
+    held against the same step in float64 on the CPU: the relative L2
+    distance of its gradients from float64's, over the trunk and at the
+    worst tensor, for the CPU's float32 step, cuda's with cuDNN (also
+    deterministic, benchmarking, and with fp32_precision "ieee" where this
+    torch has it), cuda's without, and cuda's with the
+    convs and batch norms in ``cudnn_per_kind`` and cuDNN off for one kind
+    of operation at a time (CUDNN_OFF); the last two within twice the
+    CPU's distance. And the distance of four of the trunk's convs' float32
+    passes from float64 (``conv_pass_errors``)."""
+    import inspect
+
     import torch
 
     from eegan_tpu_torch.data.synthetic import synthetic_batch
-    from eegan_tpu_torch.models.factory import build_models, randomize_
-    from eegan_tpu_torch.training.damsm_trainer import make_damsm_train_step
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1438,21 +1562,26 @@ def phase_damsm_parity():
     b1 = 0.5  # the DAMSM Adam's betas are (0.5, 0.999)
     batch = synthetic_batch(config, DAMSM_PARITY_BATCH, seed=SEED,
                             n_words=N_WORDS)
+    runs = {"cpu": ("cpu", True, False, {}),
+            "cpu_float64": ("cpu", True, True, {}),
+            "cuda": ("cuda", True, False, {}),
+            "cuda_no_cudnn": ("cuda", False, False, {}),
+            "cuda_cudnn_deterministic": ("cuda", True, False,
+                                         dict(deterministic=True)),
+            "cuda_cudnn_benchmark": ("cuda", True, False,
+                                     dict(benchmark=True))}
+    if "fp32_precision" in inspect.signature(
+            torch.backends.cudnn.flags).parameters:
+        runs["cuda_fp32_precision_ieee"] = ("cuda", True, False,
+                                            dict(fp32_precision="ieee"))
+    per_kind = [f"cuda_cudnn_but_{'_'.join(off)}" for off in CUDNN_OFF]
+    for side, off in zip(per_kind, CUDNN_OFF):
+        runs[side] = ("cuda", {k: k not in off for k in CUDNN_KINDS}, False,
+                      {})
     sides, metrics = {}, {}
-    for side, device, cudnn in (("cpu", "cpu", True), ("cuda", "cuda", True),
-                                ("cuda_no_cudnn", "cuda", False)):
-        models = build_models(config, N_WORDS, device)
-        for i, m in enumerate((models.text_encoder, models.image_encoder)):
-            randomize_(m, SEED + 300 + i)
-        models.text_encoder.drop.p = 0.0
-        step, init_opt = make_damsm_train_step(config, models)
-        opts = init_opt(models.text_encoder, models.image_encoder)
-        zero_counts()
-        with torch.backends.cudnn.flags(enabled=cudnn, allow_tf32=False):
-            metrics[side] = {k: float(v)
-                             for k, v in step(opts, batch).items()}
-        if read_counts() != launches_of():
-            fail(f"the DAMSM step on {side} launched {read_counts()}")
+    for side, (device, cudnn, float64, flags) in runs.items():
+        models, opts, metrics[side] = damsm_step_run(
+            config, batch, device, cudnn, float64, **flags)
         sides[side] = (models, opts)
     rel = {side: {k: abs(m[k] - v) / abs(v)
                   for k, v in metrics["cpu"].items()}
@@ -1462,12 +1591,11 @@ def phase_damsm_parity():
         fail(f"DAMSM step cuda vs cpu: {metrics}")
 
     heads = lambda enc, k: enc == "image_encoder" and k.startswith("emb_")
+    trunk = lambda enc, k: enc == "image_encoder" and not heads(enc, k)
     groups = (("cuda", "text_encoder",
                lambda enc, k: enc == "text_encoder", True),
               ("cuda", "image_heads", heads, True),
-              ("cuda", "image_trunk",
-               lambda enc, k: enc == "image_encoder" and not heads(enc, k),
-               False),
+              ("cuda", "image_trunk", trunk, False),
               ("cuda_no_cudnn", "image_encoder",
                lambda enc, k: enc == "image_encoder", True))
     gaps = {}
@@ -1482,6 +1610,24 @@ def phase_damsm_parity():
             bad = g["grad_rel_l2"] > 1e-1
         if bad or g["param_max_abs_err"] > 2 * lr + 1e-6:
             fail(f"DAMSM step {side} vs cpu, {group}: {g}")
+    # The trunk's gradients against float64's: the native conv autograd
+    # on cuDNN puts them hundreds of times farther from float64 than the
+    # CPU's float32 step (ROADMAP Queue 3). Without cuDNN, and with cuDNN's
+    # passes called from cudnn_per_kind's autograd Function (whichever
+    # kind it turns off), they lie within twice the CPU's distance.
+    to_float64 = {}
+    for side in runs:
+        if side != "cpu_float64":
+            g = damsm_gaps((sides["cpu_float64"], sides[side]), lr, b1,
+                           trunk)
+            to_float64[side] = {k: g[k] for k in (
+                "grad_rel_l2", "grad_rel_l2_worst_tensor")}
+    for side in ("cuda_no_cudnn", *per_kind):
+        if (to_float64[side]["grad_rel_l2"]
+                > 2 * to_float64["cpu"]["grad_rel_l2"] + 1e-6):
+            fail(f"DAMSM trunk on {side}: {to_float64[side]} from float64, "
+                 f"more than twice the CPU's {to_float64['cpu']}")
+    conv_err = conv_pass_errors(sides["cpu_float64"][0].image_encoder)
     norms = {}
     for side in ("cpu", "cuda"):
         models, opts = sides[side]
@@ -1492,9 +1638,61 @@ def phase_damsm_parity():
         fail(f"DAMSM step text gradient norms {norms}, above the clip {clip}")
     log(f"phase 15 ok: float32 DAMSM step (bird.yml, B={DAMSM_PARITY_BATCH})"
         f" on cuda against the CPU step: metric rel err {rel}; text "
-        f"gradient norms {norms}; gaps {gaps}")
+        f"gradient norms {norms}; gaps {gaps}; the trunk's gradients from "
+        f"float64's {to_float64}; conv passes from float64's {conv_err}")
     return dict(metric_rel_err=rel, metrics=metrics["cuda"],
-                text_grad_norm=norms, **gaps)
+                text_grad_norm=norms, trunk_to_float64=to_float64,
+                conv_passes_to_float64=conv_err, **gaps)
+
+
+def conv_pass_errors(encoder64):
+    """Relative L2 distance from float64 of the float32 forward, data
+    gradient and weight gradient of four of the trunk's convs (the stem,
+    Conv2d_2a_3x3, Mixed_6a's stride-2 3x3 and Mixed_6e's 1x7) on cuda
+    with cuDNN, TF32 off, on random inputs of their shapes at B=8, input
+    and weight in channels_last (as the encoder holds them) and in NCHW;
+    with cuDNN's ``fp32_precision="ieee"`` too where this torch has
+    it."""
+    import inspect
+
+    import torch
+
+    settings = {"allow_tf32_false": dict(allow_tf32=False)}
+    if "fp32_precision" in inspect.signature(
+            torch.backends.cudnn.flags).parameters:
+        settings["fp32_precision_ieee"] = dict(allow_tf32=False,
+                                               fp32_precision="ieee")
+    gen = torch.Generator().manual_seed(SEED + 301)
+    out = {}
+    for name, hw in (("Conv2d_1a_3x3", 299), ("Conv2d_2a_3x3", 149),
+                     ("Mixed_6a.branch3x3", 35),
+                     ("Mixed_6e.branch7x7_2", 17)):
+        conv = encoder64.get_submodule(name).conv
+        x = torch.randn((DAMSM_PARITY_BATCH, conv.in_channels, hw, hw),
+                        generator=gen, dtype=torch.float64)
+        geometry = (conv.stride, conv.padding, (1, 1), False, (0, 0), 1)
+        w64 = conv.weight.detach()
+        y = torch.nn.functional.conv2d(x, w64, None, *geometry[:2])
+        dy = torch.randn(y.shape, generator=gen, dtype=torch.float64)
+        want = (y, *torch.ops.aten.convolution_backward(
+            dy, x, w64, None, *geometry, [True, True, False])[:2])
+        for setting, kw in settings.items():
+            for layout, fmt in (("channels_last", torch.channels_last),
+                                ("nchw", torch.contiguous_format)):
+                xc, dyc = (t.float().cuda().contiguous(memory_format=fmt)
+                           for t in (x, dy))
+                wc = w64.float().cuda().contiguous(memory_format=fmt)
+                with torch.backends.cudnn.flags(enabled=True, **kw):
+                    got = (torch.nn.functional.conv2d(xc, wc, None,
+                                                      *geometry[:2]),
+                           *torch.ops.aten.convolution_backward(
+                               dyc, xc, wc, None, *geometry,
+                               [True, True, False])[:2])
+                out[f"{name}/{setting}/{layout}"] = {
+                    p: float((g.cpu().double() - w).norm() / w.norm())
+                    for p, g, w in zip(("forward", "dgrad", "wgrad"), got,
+                                       want)}
+    return out
 
 
 def main() -> None:

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time variants of two of the port's CUDA kernels on one NVIDIA GPU.
+"""Time variants of three of the port's CUDA kernels on one NVIDIA GPU.
 
     python3 chip_variants.py        # from the repository root, one CUDA card
 
@@ -13,7 +13,18 @@ substitutions), built with the port's nvcc flags, all at once, into
   variant must give the committed kernel's bits;
 * kernel 3, the DAMSM forward (``damsm_words.cu``) at the train shape:
   three blocks per SM, and copies with one product or both removed, whose
-  times give each product's share (their sims are wrong by design).
+  times give each product's share (their sims are wrong by design);
+* kernel 5, dW (``damsm_words.cu``) at the train shape: pass 2's tile of
+  64 columns (committed) against 32, which must give the same bits (the
+  tile does not change any output's order of summation), and a copy
+  without pass 2, whose time is pass 1's (its dW is wrong by design);
+* the discriminators' convs (``layers.TwiceDifferentiableConv``, committed,
+  against PyTorch's own conv2d and its double backward): the MAGP-style
+  double backward of three D conv shapes on cuda and on the CPU, in
+  float32 and bf16, against float64, and the bf16 train step at B=32 (``cfg/bird.yml``) with
+  each, in turns (committed, native, native, committed; host clock,
+  synchronised, median of 10 steps) and the device's busy time per step
+  (``chip_smoke.profile_steps``, 2 steps).
 
 Times are ``chip_smoke.time_cuda``'s (L2 flushed, median of 25). Prints
 nvcc's registers and spills of each variant's kernels, one JSON line of
@@ -37,6 +48,9 @@ BLOCKS = "constexpr int kBlocksPerSm = 4;"
 FWD_BOUNDS = "__global__ void __launch_bounds__(kThreads, 2) damsm_words_fwd("
 A_PRODUCT = "  // A = R W^T.\n  dr_rows<NQ>(R, sW, sP1, d);"
 C_PRODUCT = "  // C = attn2^T R (0 for the padded words).\n  dr_cols<NQ>(R, sP2, sC, d);"
+DW_TILE = "constexpr int kDwTile = 64;"
+DW_SUM = """  damsm_dw_sum<<<dim3((d.D + kDwTile - 1) / kDwTile, d.Bt), kThreads,
+                 sum_smem, s>>>(r, w, lens, scratch, dW, d);"""
 
 # name -> (substitutions, pixels per step (up, vec), blocks per SM)
 AFFINE = {
@@ -56,7 +70,12 @@ DAMSM = {
     "no_C_product": [(C_PRODUCT, "")],
     "no_A_product": [(A_PRODUCT, "")],
     "no_products": [(A_PRODUCT, ""), (C_PRODUCT, "")],
+    "dw_tile_32": [(DW_TILE, DW_TILE.replace("64", "32"))],
+    "dw_pass_1_only": [(DW_SUM, "")],
 }
+# dW runs: name -> (damsm_words build, pass 2's tile).
+DW_RUNS = {"tile_64": ("committed", 64), "tile_32": ("dw_tile_32", 32),
+           "pass_1_only": ("dw_pass_1_only", 64)}
 
 
 def build_all(build):
@@ -93,8 +112,9 @@ def build_all(build):
             m = re.search(r"Compiling entry function '(\S+)'", ln)
             if m:
                 entry = m.group(1)
-            elif ("registers" in ln or "spill" in ln) and (
-                    "affine_fwd" in entry or "damsm_words_fwd" in entry):
+            elif ("registers" in ln or "spill" in ln) and any(
+                    k in entry for k in ("affine_fwd", "damsm_words_fwd",
+                                         "damsm_dw_")):
                 lines.append(f"{entry[-40:]}: {ln.strip()}")
         built[tag] = (ctypes.CDLL(so), lines)
     return built
@@ -147,6 +167,8 @@ def time_damsm(built, cs, damsm, torch, flush, gen):
     want = damsm.words_similarity_reference(regions, words, lens)
     result = {}
     for name in DAMSM:
+        if name.startswith("dw_"):
+            continue
         fn = built[f"damsm_words.{name}"][0].eegan_damsm_words_fwd
         fn.argtypes = [p] * 4 + [i] * 6 + [ctypes.c_longlong, f, f, p]
         fn.restype = ctypes.c_int
@@ -164,6 +186,125 @@ def time_damsm(built, cs, damsm, torch, flush, gen):
         result[name] = dict(ms=ms, sims_max_abs_err=float(
             (sims - want).abs().max()))
     return result
+
+
+def time_dw(built, cs, damsm, torch, flush, gen):
+    """dW at the train shape with each pass-2 tile and without pass 2: ms,
+    the error against autograd of the plain version, and whether the two
+    tiles' bits agree."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    n = ctypes.c_longlong
+    Bi, Bt, S, L, D = cs.DAMSM_SHAPES[0]
+    regions, words, lens, _ = cs.damsm_operands(Bi, Bt, S, L, D, gen)
+    lens = lens.to(torch.int32)
+    dsim = torch.randn((Bi, Bt), generator=gen, device="cuda")
+    w = words.detach().requires_grad_(True)
+    want = torch.autograd.grad(
+        damsm.words_similarity_reference(regions, w, lens), w, dsim)[0]
+    result, outs = {}, {}
+    for run_name, (name, tile) in DW_RUNS.items():
+        fn = built[f"damsm_words.{name}"][0].eegan_damsm_words_bwd_dw
+        fn.argtypes = [p] * 6 + [i] * 6 + [n, n, i, f, f, p]
+        fn.restype = ctypes.c_int
+        plan = damsm.dw_launch_plan(Bi, Bt, S, L, D, tile=tile)
+        scratch = torch.empty(plan["scratch_bytes"] // 4, device="cuda")
+        out = outs[run_name] = torch.zeros_like(words)
+
+        def run():
+            err = fn(regions.data_ptr(), words.data_ptr(), lens.data_ptr(),
+                     dsim.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                     Bi, Bt, S, L, D, plan["LP"], plan["pair_smem_bytes"],
+                     plan["sum_smem_bytes"], tile, 5.0, 5.0,
+                     torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"dW {run_name}: CUDA error {err}")
+        ms = cs.time_cuda(run, flush)
+        torch.cuda.synchronize()
+        result[run_name] = dict(
+            ms=ms, sum_blocks=plan["sum_blocks"],
+            max_abs_err=float((out - want).abs().max()),
+            scale=float(want.abs().max()))
+    result["tiles_bitwise_equal"] = torch.equal(outs["tile_32"],
+                                                outs["tile_64"])
+    return result
+
+
+def d_conv_double_backward(torch):
+    """Relative L2 distance from float64 of d/dw <d/dx <conv(x, w), gy>,
+    ggx> (the MAGP's term) on cuda (TF32 off) and on the CPU, with
+    PyTorch's conv2d and with TwiceDifferentiableConv, at three D conv
+    shapes (B, Cin, Cout, H, k, stride, padding)."""
+    import torch.nn.functional as F
+
+    from eegan_tpu_torch.models.layers import TwiceDifferentiableConv
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # The CPU part also runs without a card:
+    #   python3 -c "import chip_variants as v, torch;
+    #               print(v.d_conv_double_backward(torch))"
+    devices = ("cuda", "cpu") if torch.cuda.is_available() else ("cpu",)
+    gen = torch.Generator().manual_seed(0)
+    out = {}
+    for B, C, O, H, k, s, p in ((4, 3, 32, 64, 3, 1, 1),
+                                (4, 64, 64, 32, 3, 1, 1),
+                                (4, 32, 64, 64, 4, 2, 1)):
+        f64 = dict(generator=gen, dtype=torch.float64)
+        x = torch.randn(B, C, H, H, **f64).contiguous(
+            memory_format=torch.channels_last)
+        w = 0.1 * torch.randn(O, C, k, k, **f64)
+        gy = torch.randn(F.conv2d(x, w, stride=s, padding=p).shape, **f64)
+        ggx = torch.randn(x.shape, **f64)
+        convs = {"native": lambda a, b: F.conv2d(a, b, None, s, p),
+                 "twice_differentiable": lambda a, b:
+                     TwiceDifferentiableConv.apply(a, b, None, (s, s),
+                                                   (p, p))}
+
+        def run(conv, dtype, device):
+            xx = x.to(device, dtype).requires_grad_(True)
+            ww = w.to(device, dtype).requires_grad_(True)
+            y = conv(xx, ww)
+            gx, = torch.autograd.grad((y.double() * gy.to(device)).sum(),
+                                      xx, create_graph=True)
+            return torch.autograd.grad((gx.double() * ggx.to(device)).sum(),
+                                       ww)[0].double().cpu()
+
+        want = run(convs["native"], torch.float64, "cpu")
+        out[str((B, C, O, H, k, s, p))] = {
+            f"{device}/{name}/{str(dt).split('.')[-1]}": float(
+                (run(conv, dt, device) - want).norm() / want.norm())
+            for device in devices for name, conv in convs.items()
+            for dt in (torch.float32, torch.bfloat16)}
+    return out
+
+
+def time_d_convs(cs, torch):
+    """The bf16 train step with the D's convs twice-differentiable
+    (committed) and with PyTorch's conv2d, in turns: step ms and the
+    device's busy ms per step."""
+    from eegan_tpu_torch.models.layers import Conv2d
+
+    _, (step, state, frozen, batch, noise) = cs.phase_train_bf16()
+
+    def use(twice):
+        for d in state.discriminators:
+            for m in d.modules():
+                if isinstance(m, Conv2d):
+                    m.twice_differentiable = twice
+
+    run = lambda: step(state, frozen, batch, noise)
+    out = {"twice_differentiable": {"ms": []}, "native": {"ms": []}}
+    for twice in (True, False, False, True):
+        use(twice)
+        key = "twice_differentiable" if twice else "native"
+        out[key]["ms"].append(cs.time_host(run, reps=10))
+    for twice in (True, False):
+        use(twice)
+        key = "twice_differentiable" if twice else "native"
+        out[key]["device_busy_ms_per_step"] = cs.profile_steps(
+            run, 2, out[key]["ms"][0])["device_busy_ms_per_step"]
+    use(True)
+    return out
 
 
 def main() -> None:
@@ -185,6 +326,9 @@ def main() -> None:
     result = dict(
         affine_forward_ms=time_affine(built, cs, affine, torch, flush, gen),
         damsm_forward=time_damsm(built, cs, damsm, torch, flush, gen),
+        damsm_dw=time_dw(built, cs, damsm, torch, flush, gen),
+        d_conv_double_backward=d_conv_double_backward(torch),
+        d_convs_bf16_step=time_d_convs(cs, torch),
         gpu=torch.cuda.get_device_name(0))
     print(json.dumps(result))
     print(cs.nvidia_smi())

@@ -139,6 +139,10 @@ class Discriminator(nn.Module):
         self.COND_DNET = (DiscCond(ladder[-1], class_nums, nef, compute_dtype)
                           if disc_class else
                           DiscSent(ladder[-1], nef, compute_dtype))
+        # The MAGP differentiates the input gradient by the weights.
+        for m in self.modules():
+            if isinstance(m, Conv2d):
+                m.twice_differentiable = True
 
     def features(self, x):
         """x: (B, s, s, 3) NHWC -> (B, C, 4, 4) features (channels_last)."""

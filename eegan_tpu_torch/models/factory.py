@@ -110,3 +110,14 @@ def randomize_(module: nn.Module, seed: int) -> nn.Module:
             elif name == "running_var":
                 buf.copy_(0.5 + torch.rand(buf.shape, generator=gen))
     return module
+
+
+def to_float64_(module: nn.Module) -> nn.Module:
+    """Casts ``module``'s parameters and buffers to float64, in place, and
+    makes its layers compute in float64: the yardstick that says how far a
+    float32 step's rounding moves its gradients (the DAMSM encoders; their
+    losses follow the inputs' dtype)."""
+    for mod in module.modules():
+        if hasattr(mod, "compute_dtype"):
+            mod.compute_dtype = torch.float64
+    return module.double()

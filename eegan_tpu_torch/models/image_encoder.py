@@ -38,9 +38,11 @@ class ImageEncoder(InceptionV3):
 
     def forward(self, x) -> Tuple[torch.Tensor, torch.Tensor]:
         """x: (B, H, W, 3) in [-1, 1], NHWC. Returns (region features
-        (B, 17, 17, nef), code (B, nef)), both float32."""
+        (B, 17, 17, nef), code (B, nef)), both in the parameters' dtype
+        (float32)."""
         x = x.permute(0, 3, 1, 2).to(self.compute_dtype)
         taps = super().forward(resize_bilinear_half_pixel(x, (299, 299)))
         region = self.emb_features(taps["mixed_6e"])
         code = self.emb_cnn_code(taps["pool3"])
-        return region.float().permute(0, 2, 3, 1), code.float()
+        dt = self.emb_features.weight.dtype
+        return region.to(dt).permute(0, 2, 3, 1), code.to(dt)

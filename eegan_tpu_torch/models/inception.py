@@ -5,8 +5,9 @@
 torchvision's names (``Conv2d_1a_3x3``, ``Mixed_5b``..``Mixed_7c``,
 ``conv``/``bn`` inside ``BasicConv2d``, the branch names): a torchvision or
 AttnGAN state dict loads with ``load_state_dict``. Convs run in
-``compute_dtype``; batch norm (eps 1e-3) and its output are float32, as the
-JAX package's ``nn.BatchNorm(dtype=float32)``.
+``compute_dtype``; batch norm (eps 1e-3) and its output are in the
+parameters' dtype (float32, as the JAX package's
+``nn.BatchNorm(dtype=float32)``; float64 after ``factory.to_float64_``).
 
 ``forward(x)`` takes NCHW input (channels_last memory) already resized to
 299x299 and returns the taps ``mixed_6e`` (B, 768, 17, 17) and ``pool3``
@@ -33,7 +34,7 @@ class BasicConv2d(nn.Module):
         self.bn = nn.BatchNorm2d(out_ch, eps=0.001)
 
     def forward(self, x):
-        return F.relu(self.bn(self.conv(x).float()))
+        return F.relu(self.bn(self.conv(x).to(self.bn.weight.dtype)))
 
 
 def max_pool3_s2(x):

@@ -27,9 +27,52 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
 
 
+class TwiceDifferentiableConv(torch.autograd.Function):
+    """``F.conv2d`` whose backward is made of first-order convolutions that
+    autograd differentiates again: the input gradient is
+    ``conv_transpose2d(dy, w)``, the weight and bias gradients come from
+    ``convolution_backward``. For the discriminators' convs, whose input
+    gradient the MAGP differentiates by the weights: PyTorch's own double
+    backward of conv2d (``_convolution_double_backward``) gives that weight
+    gradient wrong for stride 1 with padding in bfloat16 on the CPU (about
+    100% off against float64; float32 is right), where this form is within
+    bf16's rounding. On the card it also keeps those weight gradients on
+    cuDNN's weight-gradient kernels, not on the batch-and-channel-swapped
+    convolutions of the native double backward (PERF.md §6)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, stride, padding):
+        ctx.save_for_backward(x, w)
+        ctx.geometry = (stride, padding, b is not None)
+        return F.conv2d(x, w, b, stride, padding)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        stride, padding, has_bias = ctx.geometry
+        need = ctx.needs_input_grad
+        dx = dw = db = None
+        if need[0]:
+            # The rows and columns a strided conv never read, as padding.
+            extra = tuple(x.shape[2 + i] - ((dy.shape[2 + i] - 1) * stride[i]
+                                            - 2 * padding[i] + w.shape[2 + i])
+                          for i in range(2))
+            dx = F.conv_transpose2d(dy, w, None, stride, padding, extra)
+        if need[1] or need[2]:
+            _, dw, db = torch.ops.aten.convolution_backward(
+                dy, x, w, [w.shape[0]] if has_bias else None, stride,
+                padding, (1, 1), False, (0, 0), 1,
+                [False, need[1], need[2] and has_bias])
+        return dx, dw, db, None, None
+
+
 class Conv2d(nn.Conv2d):
     """Conv computing in ``compute_dtype``; 'same' padding (k // 2 per
-    side) unless ``padding`` is given."""
+    side) unless ``padding`` is given. With ``twice_differentiable`` set
+    (the discriminators' convs), a forward that records a gradient takes
+    :class:`TwiceDifferentiableConv`."""
+
+    twice_differentiable = False
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size,
                  bias: bool = False, compute_dtype=torch.float32,
@@ -47,6 +90,10 @@ class Conv2d(nn.Conv2d):
     def forward(self, x):
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
+        if self.twice_differentiable and torch.is_grad_enabled():
+            return TwiceDifferentiableConv.apply(
+                x.to(dt), self.weight.to(dt), bias, self.stride,
+                self.padding)
         return F.conv2d(x.to(dt), self.weight.to(dt), bias,
                         stride=self.stride, padding=self.padding)
 

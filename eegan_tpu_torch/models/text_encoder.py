@@ -64,4 +64,4 @@ class TextEncoder(nn.Module):
         h_n = hidden[0] if self.rnn_type == "LSTM" else hidden
         words = pad_packed_sequence(out, batch_first=True, total_length=t)[0]
         sent = h_n.transpose(0, 1).reshape(b, -1)
-        return words.float(), sent.float()
+        return words, sent

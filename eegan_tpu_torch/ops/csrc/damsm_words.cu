@@ -2,9 +2,9 @@
 // Hopper (sm_90a).
 //
 // Replaces the three TPU kernels of eegan_tpu/ops/damsm_pallas.py:
-//   damsm_words_fwd   <- _kernel          (words_similarity_fused)
-//   damsm_words_bwd_dr <- _bwd_dr_kernel  (_words_sim_bwd, dR pass)
-//   damsm_words_bwd_dw <- _bwd_dw_kernel  (_words_sim_bwd, dW pass)
+//   damsm_words_fwd              <- _kernel         (words_similarity_fused)
+//   damsm_dr_pair + damsm_dr_sum <- _bwd_dr_kernel  (_words_sim_bwd, dR pass)
+//   damsm_dw_pair + damsm_dw_sum <- _bwd_dw_kernel  (_words_sim_bwd, dW pass)
 //
 // For one (image i, text t) pair, with R = regions[i] (S, D), W = words[t]
 // (L, D) and the first len_t words valid:
@@ -34,40 +34,44 @@
 // text and image. The per-group stabiliser of the TPU kernel is not needed
 // either: the row max over one text's words is exact.
 //
-// * The pair's forward (pair_attend), shared by the forward kernel and dR's
-//   first pass, runs over the text's n valid words only (rounded up to NQ,
-//   a multiple of 4, a template parameter chosen per block). Its products
-//   (A = R W^T, C = attn2^T R; dR adds da2 = R dC^T) keep register tiles: a
-//   thread owns up to four regions x NQ words (or four columns x NQ words),
-//   so each float4 of R read from the L2 (9.5 MB for 32 images, held in the
-//   50 MB L2) feeds 4 NQ multiply-adds or more, and the next one is loaded
-//   before they run. The softmaxes, cosines and Z are group-wide: a word
-//   group of WG lanes (NQ rounded up to a power of 2) takes a region row,
-//   and the reductions are shuffles in the group or fixed-order sums of 256
-//   partials in shared memory.
+// * The pair's forward (pair_attend), shared by all three passes' pair
+//   blocks, runs over the text's n valid words only (rounded up to NQ, a
+//   multiple of 4, a template parameter chosen per block). Its products
+//   (A = R W^T, C = attn2^T R; the backward adds da2 = R dC^T) keep
+//   register tiles: a thread owns up to four regions x NQ words (or four
+//   columns x NQ words), so each float4 of R read from the L2 (9.5 MB for
+//   32 images, held in the 50 MB L2) feeds 4 NQ multiply-adds or more, and
+//   the next one is loaded before they run. The softmaxes, cosines and Z
+//   are group-wide: a word group of WG lanes (NQ rounded up to a power of
+//   2) takes a region row, and the reductions are shuffles in the group or
+//   fixed-order sums of 256 partials in shared memory.
 // * forward, damsm_words_fwd: one block per pair (Bt x Bi = 1024 blocks at
 //   the train shape); W, C and one (S, LP) grid (attn2 overwrites attn1) in
 //   shared memory, 64.7 KB at that shape. Two blocks share an SM: the
 //   registers (128 a thread) allow no third, and capping them at 80 for
 //   three blocks spills and runs slower.
-// * dR, two launches, no atomics, deterministic:
-//   - damsm_dr_pair, one block per pair, runs the pair's forward and
-//     backward down to dA and dC, and writes dA and attn2 (n x S) and dC
-//     (n x D) to a float32 scratch of 4 Bi Bt L (2 SP + D) bytes (68.8 MB at
-//     (32, 32, 289, 20, 256)). W, C/dC and three (S, LP) grids (attn1,
-//     attn2, da2/dA) are in shared memory, 112.5 KB at that shape, so two
-//     blocks fit on an SM.
-//   - damsm_dr_sum, one block per image and 64 x 64 tile of (S, D) (640
-//     blocks), sums dR = sum_t (dA_t W_t + attn2_t dC_t) over the texts in
-//     index order, a product with K = 2 n_t per text staged in shared
-//     memory, 4 x 4 outputs per thread, each output written once.
-// * dW: one block per text, looping over the images in order; each thread
-//   keeps its column d of dW for all words in registers. It still uses one
-//   block per text (32 blocks) and its own per-pair code over all L words
-//   (pair_forward, pair_backward).
-// Products run on the CUDA cores in float32. A padded word gets
-// attn1 = 0 exactly (exp(-1e9 - max)), hence dA = 0, dcos = 0 and an exactly
-// zero dW; the forward and dR skip padded words altogether.
+// * The two backward passes each take two launches, with no atomics: the
+//   same bits on every launch. Their pair blocks (pair_grad) run the pair's
+//   forward and backward down to dA and dC; W, C/dC and three (S, LP) grids
+//   (attn1, attn2, da2/dA) are in shared memory, 112.5 KB at the train
+//   shape, so two blocks fit on an SM.
+//   - dR: damsm_dr_pair writes dA and attn2 (n x S) and dC (n x D) to a
+//     float32 scratch of 4 Bi Bt L (2 SP + D) bytes (68.8 MB at (32, 32,
+//     289, 20, 256)); damsm_dr_sum, one block per image and 64 x 64 tile of
+//     (S, D) (640 blocks), sums dR = sum_t (dA_t W_t + attn2_t dC_t) over
+//     the texts in index order, a product with K = 2 n_t per text staged in
+//     shared memory, 4 x 4 outputs per thread, each output written once.
+//   - dW: damsm_dw_pair folds the cosine's direct term into the product
+//     and writes P = dA + (dcos / den) attn2 (S x NQ) and kappa = dcos cos /
+//     |W|^2 (n) to a float32 scratch of 4 Bi Bt (S LT + L) bytes (23.8 MB at
+//     the train shape); damsm_dw_sum, one block per text and 64-column tile
+//     of D (128 blocks), sums P_i^T R_i over the images in index order, a
+//     product with M = n_t, N = 64 and K = Bi S (9,248) staged by cp.async
+//     in two buffers of 64 regions, then subtracts (sum_i kappa_i) W_t and
+//     writes each output once. 64 columns rather than 32 (256 blocks, which
+//     fill the SMs) halve the reads of P, and measure faster.
+// Products run on the CUDA cores in float32. A padded word gets zero
+// attention and is skipped; dW is written 0 there.
 //
 // C interface: eegan_damsm_words_{fwd,bwd_dr,bwd_dw}(...) return
 // cudaGetLastError() after the launches (0 = launched), or
@@ -84,7 +88,6 @@ namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr float kNegInf = -1e9f;
 constexpr float kEps = 1e-8f;
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -93,261 +96,23 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Shape of one pair's problem and its shared-memory layout.
-struct Dims {
-  int S, L, D;
-  int DP;  // row stride of the (LT, D) tiles: D + 4 (float4-aligned, and
-           // conflict-free for the lane = word float4 reads)
-  int LP;  // row stride of the (S, LT) tiles: LT + 4
-};
-
-// Per-word quantities of the current pair.
-struct WordStats {
-  float cos[32], den[32], wn2[32], cn2[32], row[32], dcos[32];
-  float Z;
-};
-
-// out[s, l] = <R[s], M[l]> for l < L: lane = word, a warp takes four
-// regions per step, the float4 loads of R are broadcast across the warp.
-__device__ void rows_dot(const float* __restrict__ R, const float* M,
-                         float* out, const Dims& d) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int l = lane < d.L ? lane : 0;
-  const float4* m = reinterpret_cast<const float4*>(M + l * d.DP);
-  const int D4 = d.D / 4;
-  for (int s0 = warp * 4; s0 < d.S; s0 += kWarps * 4) {
-    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    const float4* r[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int s = s0 + k < d.S ? s0 + k : d.S - 1;
-      r[k] = reinterpret_cast<const float4*>(R + (int64_t)s * d.D);
-    }
-    for (int q = 0; q < D4; ++q) {
-      const float4 w = m[q];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const float4 v = __ldg(r[k] + q);
-        acc[k] += v.x * w.x + v.y * w.y + v.z * w.z + v.w * w.w;
-      }
-    }
-    if (lane < d.L) {
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        if (s0 + k < d.S) out[(s0 + k) * d.LP + lane] = acc[k];
-    }
-  }
-}
-
-// acc[l] += sum_s P[s, l] * R[s, dcol] for l < LT (thread = column dcol).
-template <int LT>
-__device__ __forceinline__ void cols_accumulate(const float* __restrict__ R,
-                                                const float* P, int dcol,
-                                                const Dims& d, float* acc) {
-  for (int s = 0; s < d.S; ++s) {
-    const float r = __ldg(R + (int64_t)s * d.D + dcol);
-    const float4* p = reinterpret_cast<const float4*>(P + s * d.LP);
-#pragma unroll
-    for (int q = 0; q < LT / 4; ++q) {
-      const float4 a = p[q];
-      acc[4 * q + 0] += a.x * r;
-      acc[4 * q + 1] += a.y * r;
-      acc[4 * q + 2] += a.z * r;
-      acc[4 * q + 3] += a.w * r;
-    }
-  }
-}
-
-// Loads W = words[t] into sW (rows L..LT-1 zero).
-template <int LT>
-__device__ void load_words(const float* __restrict__ words, int t,
-                           const Dims& d, float* sW) {
-  for (int i = threadIdx.x; i < LT * d.D; i += kThreads) {
-    const int l = i / d.D;
-    const int c = i - l * d.D;
-    sW[l * d.DP + c] =
-        l < d.L ? words[((int64_t)t * d.L + l) * d.D + c] : 0.0f;
-  }
-}
-
-// The forward of one pair: sP1 <- attn1, sP2 <- attn2, sC <- C (columns and
-// rows l >= L zero), st <- cos, norms, row, Z. Starts and ends with a
-// barrier-separated state.
-template <int LT>
-__device__ void pair_forward(const float* __restrict__ R, int len,
-                             float gamma1, float gamma2, const Dims& d,
-                             const float* sW, float* sC, float* sP1,
-                             float* sP2, WordStats& st) {
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-
-  rows_dot(R, sW, sP1, d);
-  __syncthreads();
-
-  // Softmax over the words of each region (masked), in place.
-  for (int s = tid; s < d.S; s += kThreads) {
-    float* p = sP1 + s * d.LP;
-    float mx = -INFINITY;
-    for (int l = 0; l < d.L; ++l) mx = fmaxf(mx, l < len ? p[l] : kNegInf);
-    float sum = 0.0f;
-    for (int l = 0; l < d.L; ++l) {
-      const float e = expf((l < len ? p[l] : kNegInf) - mx);
-      p[l] = e;
-      sum += e;
-    }
-    for (int l = 0; l < d.L; ++l) p[l] = p[l] / sum;
-    for (int l = d.L; l < LT; ++l) p[l] = 0.0f;
-  }
-  __syncthreads();
-
-  // Softmax over the regions of gamma1 * attn1, one warp per word.
-  for (int l = warp; l < LT; l += kWarps) {
-    if (l >= d.L) {
-      for (int s = lane; s < d.S; s += 32) sP2[s * d.LP + l] = 0.0f;
-      continue;
-    }
-    float mx = -INFINITY;
-    for (int s = lane; s < d.S; s += 32)
-      mx = fmaxf(mx, gamma1 * sP1[s * d.LP + l]);
-    mx = warp_max(mx);
-    float sum = 0.0f;
-    for (int s = lane; s < d.S; s += 32)
-      sum += expf(gamma1 * sP1[s * d.LP + l] - mx);
-    sum = warp_sum(sum);
-    for (int s = lane; s < d.S; s += 32)
-      sP2[s * d.LP + l] = expf(gamma1 * sP1[s * d.LP + l] - mx) / sum;
-  }
-  __syncthreads();
-
-  // Context C = attn2^T R, thread = column.
-  for (int c = tid; c < d.D; c += kThreads) {
-    float acc[LT];
-#pragma unroll
-    for (int l = 0; l < LT; ++l) acc[l] = 0.0f;
-    cols_accumulate<LT>(R, sP2, c, d, acc);
-#pragma unroll
-    for (int l = 0; l < LT; ++l) sC[l * d.DP + c] = acc[l];
-  }
-  __syncthreads();
-
-  // Cosine and the masked exp, one warp per word.
-  for (int l = warp; l < d.L; l += kWarps) {
-    float wc = 0.0f, ww = 0.0f, cc = 0.0f;
-    for (int c = lane; c < d.D; c += 32) {
-      const float a = sW[l * d.DP + c];
-      const float b = sC[l * d.DP + c];
-      wc += a * b;
-      ww += a * a;
-      cc += b * b;
-    }
-    wc = warp_sum(wc);
-    ww = warp_sum(ww);
-    cc = warp_sum(cc);
-    if (lane == 0) {
-      const float den = fmaxf(sqrtf(ww) * sqrtf(cc), kEps);
-      const float cs = wc / den;
-      st.cos[l] = cs;
-      st.den[l] = den;
-      st.wn2[l] = fmaxf(ww, kEps * kEps);
-      st.cn2[l] = fmaxf(cc, kEps * kEps);
-      st.row[l] = l < len ? expf(gamma2 * cs) : 0.0f;
-    }
-  }
-  __syncthreads();
-  if (tid == 0) {
-    float z = 0.0f;
-    for (int l = 0; l < d.L; ++l) z += st.row[l];
-    st.Z = z;
-  }
-  __syncthreads();
-}
-
-// The backward of one pair down to dA, from g = dsim[i, t]:
-// st.dcos, sdC <- dC, sP3 <- dA. Needs pair_forward's results.
-template <int LT>
-__device__ void pair_backward(const float* __restrict__ R, float g,
-                              float gamma1, float gamma2, const Dims& d,
-                              const float* sW, const float* sC,
-                              const float* sP1, const float* sP2, float* sdC,
-                              float* sP3, WordStats& st) {
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-
-  if (tid < LT)
-    st.dcos[tid] = tid < d.L ? g * st.row[tid] * gamma2 / fmaxf(st.Z, kEps)
-                             : 0.0f;
-  __syncthreads();
-  for (int i = tid; i < LT * d.D; i += kThreads) {
-    const int l = i / d.D;
-    const int c = i - l * d.D;
-    float v = 0.0f;
-    if (l < d.L)
-      v = st.dcos[l] * (sW[l * d.DP + c] / st.den[l] -
-                        st.cos[l] * sC[l * d.DP + c] / st.cn2[l]);
-    sdC[l * d.DP + c] = v;
-  }
-  __syncthreads();
-
-  // da2 = R dC^T, then back through the softmax over regions.
-  rows_dot(R, sdC, sP3, d);
-  __syncthreads();
-  for (int l = warp; l < LT; l += kWarps) {
-    if (l >= d.L) {
-      for (int s = lane; s < d.S; s += 32) sP3[s * d.LP + l] = 0.0f;
-      continue;
-    }
-    float colsum = 0.0f;
-    for (int s = lane; s < d.S; s += 32)
-      colsum += sP2[s * d.LP + l] * sP3[s * d.LP + l];
-    colsum = warp_sum(colsum);
-    // da1 = gamma1 * dG, dG = attn2 * (da2 - colsum).
-    for (int s = lane; s < d.S; s += 32) {
-      const int j = s * d.LP + l;
-      sP3[j] = gamma1 * (sP2[j] * (sP3[j] - colsum));
-    }
-  }
-  __syncthreads();
-  // Back through the softmax over words: dA = attn1 * (da1 - <attn1, da1>).
-  for (int s = tid; s < d.S; s += kThreads) {
-    const float* a = sP1 + s * d.LP;
-    float* p = sP3 + s * d.LP;
-    float rowsum = 0.0f;
-    for (int l = 0; l < d.L; ++l) rowsum += a[l] * p[l];
-    for (int l = 0; l < d.L; ++l) p[l] = a[l] * (p[l] - rowsum);
-  }
-  __syncthreads();
-}
-
-size_t smem_floats(int LT, const Dims& d, int n_tiles, int n_grids) {
-  return (size_t)n_tiles * LT * d.DP + (size_t)n_grids * d.S * d.LP;
-}
-
 // ---------------------------------------------------------------------------
-// The forward and dR's first pass, one block per (text, image) pair over the
-// text's valid words; then damsm_dr_sum, one block per (image, 64x64 tile).
+// The per-pair code, one block per (text, image) pair over the text's valid
+// words: the forward, and the first pass of dR and of dW.
 // ---------------------------------------------------------------------------
 
-// Layout of the pair blocks' shared memory and dR's scratch: LT = L rounded
+// Layout of the pair blocks' shared memory and the scratches: LT = L rounded
 // up to 4, the rows of the (LT, D) tiles; LP, the row stride of the (S, LP)
-// grids; SP, the row stride of the scratch's (L, SP) planes. LP and SP come
-// from the launch plans (ops/damsm.py:fwd_launch_plan, dr_launch_plan).
-struct DrDims {
+// grids; SP, the row stride of dR's (L, SP) planes. LP and SP come from the
+// launch plans (ops/damsm.py:fwd_launch_plan, dr_launch_plan,
+// dw_launch_plan).
+struct Dims {
   int Bi, Bt, S, L, D;
   int LT, LP, DP, SP;
 };
 
-DrDims make_dr_dims(int Bi, int Bt, int S, int L, int D, int LP, int SP) {
-  DrDims d;
+Dims make_dims(int Bi, int Bt, int S, int L, int D, int LP, int SP) {
+  Dims d;
   d.Bi = Bi;
   d.Bt = Bt;
   d.S = S;
@@ -385,7 +150,7 @@ __device__ __forceinline__ float group_max(float v, int width, unsigned m) {
 template <int NQ, int RS>
 __device__ __forceinline__ void dr_rows_tile(const float* __restrict__ R,
                                              const float* M, float* out,
-                                             int s0, int q, const DrDims& d) {
+                                             int s0, int q, const Dims& d) {
   float acc[RS][NQ];
 #pragma unroll
   for (int a = 0; a < RS; ++a)
@@ -436,7 +201,7 @@ __device__ __forceinline__ void dr_rows_tile(const float* __restrict__ R,
 // per round and thread quad, two at a time, the odd last one alone.
 template <int NQ>
 __device__ void dr_rows(const float* __restrict__ R, const float* M,
-                        float* out, const DrDims& d) {
+                        float* out, const Dims& d) {
   const int q = threadIdx.x & 3;
   int s0 = threadIdx.x >> 2;
   if constexpr (NQ <= 16)
@@ -453,7 +218,7 @@ __device__ void dr_rows(const float* __restrict__ R, const float* M,
 // this one's multiply-adds.
 template <int NQ>
 __device__ void dr_cols(const float* __restrict__ R, const float* P, float* C,
-                        const DrDims& d) {
+                        const Dims& d) {
   constexpr int CW = NQ <= 20 ? 4 : 2;
   using Vec = typename std::conditional<CW == 4, float4, float2>::type;
   const int ncol = d.D / CW;
@@ -500,9 +265,10 @@ __device__ void dr_cols(const float* __restrict__ R, const float* P, float* C,
   }
 }
 
-// Per-word statistics of a pair, in shared memory (32 floats each).
+// Per-word statistics of a pair, in shared memory (32 floats each); wn2 =
+// max(|W_l|^2, eps^2) only where dW needs it (else null).
 struct PairStats {
-  float *cos, *den, *cn2, *row;
+  float *cos, *den, *cn2, *row, *wn2;
 };
 
 // Word groups of the softmaxes: WG = NQ rounded up to a power of 2 lanes
@@ -523,7 +289,7 @@ struct WordGroups {
 template <int NQ>
 __device__ void pair_attend(const float* __restrict__ R,
                             const float* __restrict__ W, int n, float gamma1,
-                            float gamma2, const DrDims& d, float* sW,
+                            float gamma2, const Dims& d, float* sW,
                             float* sC, float* sP1, float* sP2, float* red,
                             const PairStats& st) {
   const int tid = threadIdx.x;
@@ -619,6 +385,7 @@ __device__ void pair_attend(const float* __restrict__ R,
         st.den[wl] = den;
         st.cn2[wl] = fmaxf(cc, kEps * kEps);
         st.row[wl] = expf(gamma2 * cs);
+        if (st.wn2 != nullptr) st.wn2[wl] = fmaxf(ww, kEps * kEps);
       }
     }
   }
@@ -626,31 +393,50 @@ __device__ void pair_attend(const float* __restrict__ R,
 }
 
 // Shared-memory layout of a pair block: sW and sC (LT, DP), then the (S, LP)
-// grids (three for dR, one for the forward), kThreads floats of partials and
-// four 32-float arrays of per-word statistics.
-size_t pair_smem_floats(const DrDims& d, int grids) {
+// grids (three for the backward passes, one for the forward), kThreads
+// floats of partials and `stats` 32-float arrays of per-word statistics
+// (four; five for dW, which adds wn2).
+size_t pair_smem_floats(const Dims& d, int grids, int stats) {
   return (size_t)2 * d.LT * d.DP + (size_t)grids * d.S * d.LP + kThreads +
-         4 * 32;
+         (size_t)stats * 32;
 }
 
-// One (text t, image i) pair of the dR pass, for n valid words rounded up to
-// NQ (a multiple of 4). Writes the pair's dA and attn2 (n rows of S, word
-// major) and dC (n rows of D) to the scratch; damsm_dr_sum makes dR of them.
-template <int NQ>
-__device__ void dr_pair(const float* __restrict__ R,
-                        const float* __restrict__ W, int n, float g,
-                        float gamma1, float gamma2, const DrDims& d,
-                        float* __restrict__ oA, float* __restrict__ oG,
-                        float* __restrict__ oC) {
+// A backward pair block's shared memory: sW (LT, DP) words, 0 for l >= n;
+// sC (LT, DP) C, then dC; the (S, LP) grids sP1 (A, then attn1), sP2
+// (attn2) and sX (da2, then dA); kThreads partials; the statistics, with
+// wn2 for dW only.
+struct PairSmem {
+  float *sW, *sC, *sP1, *sP2, *sX, *red;
+  PairStats st;
+};
+
+__device__ PairSmem backward_smem(const Dims& d, bool with_wn2) {
   extern __shared__ float4 smem4[];
-  float* sW = reinterpret_cast<float*>(smem4);  // (LT, DP) words, 0 for l >= n
-  float* sC = sW + d.LT * d.DP;                 // (LT, DP) C, then dC
-  float* sP1 = sC + d.LT * d.DP;                // (S, LP) A, then attn1
-  float* sP2 = sP1 + d.S * d.LP;                // (S, LP) attn2
-  float* sX = sP2 + d.S * d.LP;                 // (S, LP) da2, then dA
-  float* red = sX + d.S * d.LP;                 // kThreads partials
-  const PairStats st{red + kThreads, red + kThreads + 32,
-                     red + kThreads + 64, red + kThreads + 96};
+  PairSmem m;
+  m.sW = reinterpret_cast<float*>(smem4);
+  m.sC = m.sW + d.LT * d.DP;
+  m.sP1 = m.sC + d.LT * d.DP;
+  m.sP2 = m.sP1 + d.S * d.LP;
+  m.sX = m.sP2 + d.S * d.LP;
+  m.red = m.sX + d.S * d.LP;
+  float* st = m.red + kThreads;
+  m.st = PairStats{st, st + 32, st + 64, st + 96,
+                   with_wn2 ? st + 128 : nullptr};
+  return m;
+}
+
+// The backward of one (text t, image i) pair, for n valid words rounded up
+// to NQ (a multiple of 4), down to dA: the pair's forward (pair_attend),
+// then m.sC <- dC and m.sX <- dA (0 for l >= n). Returns Z, the sum of the
+// valid words' rows. Ends with a barrier.
+template <int NQ>
+__device__ float pair_grad(const float* __restrict__ R,
+                           const float* __restrict__ W, int n, float g,
+                           float gamma1, float gamma2, const Dims& d,
+                           const PairSmem& m) {
+  float *sW = m.sW, *sC = m.sC, *sP1 = m.sP1, *sP2 = m.sP2, *sX = m.sX;
+  float* red = m.red;
+  const PairStats& st = m.st;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   constexpr int WG = WordGroups<NQ>::WG;
@@ -712,21 +498,89 @@ __device__ void dr_pair(const float* __restrict__ R,
     }
   }
   __syncthreads();
+  return Z;
+}
 
+// One pair of the dR pass: writes the pair's dA and attn2 (n rows of S, word
+// major) and dC (n rows of D) to the scratch; damsm_dr_sum makes dR of them.
+template <int NQ>
+__device__ void dr_pair(const float* __restrict__ R,
+                        const float* __restrict__ W, int n, float g,
+                        float gamma1, float gamma2, const Dims& d,
+                        float* __restrict__ oA, float* __restrict__ oG,
+                        float* __restrict__ oC) {
+  const PairSmem m = backward_smem(d, false);
+  pair_grad<NQ>(R, W, n, g, gamma1, gamma2, d, m);
+  const int tid = threadIdx.x;
+  const int D4 = d.D >> 2;
   // Copy out, word major: dA and attn2 (s fastest), dC.
   for (int k = tid; k < n * d.S; k += kThreads) {
     const int r = k / d.S;
     const int s = k - r * d.S;
-    oA[r * d.SP + s] = sX[s * d.LP + r];
-    oG[r * d.SP + s] = sP2[s * d.LP + r];
+    oA[r * d.SP + s] = m.sX[s * d.LP + r];
+    oG[r * d.SP + s] = m.sP2[s * d.LP + r];
   }
   for (int k = tid; k < n * D4; k += kThreads) {
     const int r = k / D4;
     const int c = k - r * D4;
     reinterpret_cast<float4*>(oC + r * d.D)[c] =
-        *reinterpret_cast<const float4*>(sC + r * d.DP + 4 * c);
+        *reinterpret_cast<const float4*>(m.sC + r * d.DP + 4 * c);
   }
 }
+
+// One pair of the dW pass. The cosine's direct term joins the product
+// (dcos_l / den_l C_l = sum_s dcos_l / den_l attn2[s, l] R[s]), so the pair
+// writes P = dA + (dcos / den) attn2, region major (S rows of NQ floats, 0
+// for l >= n, as damsm_dw_sum stages them), and kappa_l = dcos_l cos_l /
+// wn2_l (n floats); dW_t[l] = sum_i (P_i^T R_i)[l] - (sum_i kappa_i[l]) W_t[l].
+template <int NQ>
+__device__ void dw_pair(const float* __restrict__ R,
+                        const float* __restrict__ W, int n, float g,
+                        float gamma1, float gamma2, const Dims& d,
+                        float* __restrict__ oP, float* __restrict__ oK) {
+  const PairSmem m = backward_smem(d, true);
+  const float Z = pair_grad<NQ>(R, W, n, g, gamma1, gamma2, d, m);
+  const int tid = threadIdx.x;
+  float* coef = m.red;  // dcos / den per word (the partials are free now)
+  if (tid < NQ) {
+    float c = 0.0f;
+    if (tid < n) {
+      const float dcos = g * m.st.row[tid] * gamma2 / fmaxf(Z, kEps);
+      c = dcos / m.st.den[tid];
+      oK[tid] = dcos * m.st.cos[tid] / m.st.wn2[tid];
+    }
+    coef[tid] = c;
+  }
+  __syncthreads();
+  constexpr int Q4 = NQ / 4;
+  for (int k = tid; k < d.S * Q4; k += kThreads) {
+    const int s = k / Q4;
+    const int q = 4 * (k - s * Q4);
+    const float4 a = *reinterpret_cast<const float4*>(m.sX + s * d.LP + q);
+    const float4 b = *reinterpret_cast<const float4*>(m.sP2 + s * d.LP + q);
+    const float4 c = *reinterpret_cast<const float4*>(coef + q);
+    float4 v;
+    v.x = q + 0 < n ? a.x + c.x * b.x : 0.0f;
+    v.y = q + 1 < n ? a.y + c.y * b.y : 0.0f;
+    v.z = q + 2 < n ? a.z + c.z * b.z : 0.0f;
+    v.w = q + 3 < n ? a.w + c.w * b.w : 0.0f;
+    reinterpret_cast<float4*>(oP)[k] = v;
+  }
+}
+
+// Calls FN<NQ>(...) with NQ = n rounded up to 4 (0 < n <= 32): the pair
+// code is instantiated for 8 word counts and each block takes its text's.
+#define EEGAN_WORDS_SWITCH(n, FN, ...)  \
+  switch (((n) + 3) / 4) {              \
+    case 1: FN<4>(__VA_ARGS__); break;  \
+    case 2: FN<8>(__VA_ARGS__); break;  \
+    case 3: FN<12>(__VA_ARGS__); break; \
+    case 4: FN<16>(__VA_ARGS__); break; \
+    case 5: FN<20>(__VA_ARGS__); break; \
+    case 6: FN<24>(__VA_ARGS__); break; \
+    case 7: FN<28>(__VA_ARGS__); break; \
+    case 8: FN<32>(__VA_ARGS__); break; \
+  }
 
 // The forward: grid (Bt, Bi), one block per pair. One (S, LP) grid (attn2
 // overwrites attn1), 64.7 KB at the train shape (L = 20). A text with no
@@ -734,7 +588,7 @@ __device__ void dr_pair(const float* __restrict__ R,
 template <int NQ>
 __device__ void fwd_pair(const float* __restrict__ R,
                          const float* __restrict__ W, int n, float gamma1,
-                         float gamma2, const DrDims& d,
+                         float gamma2, const Dims& d,
                          float* __restrict__ out) {
   extern __shared__ float4 smem4[];
   float* sW = reinterpret_cast<float*>(smem4);  // (LT, DP) words
@@ -742,7 +596,7 @@ __device__ void fwd_pair(const float* __restrict__ R,
   float* sP = sC + d.LT * d.DP;                 // (S, LP) attn1, then attn2
   float* red = sP + d.S * d.LP;                 // kThreads partials
   const PairStats st{red + kThreads, red + kThreads + 32,
-                     red + kThreads + 64, red + kThreads + 96};
+                     red + kThreads + 64, red + kThreads + 96, nullptr};
   pair_attend<NQ>(R, W, n, gamma1, gamma2, d, sW, sC, sP, sP, red, st);
   const int tid = threadIdx.x;
   if (tid < 32) {  // Z as dR's pass sums it: the valid words' rows, a warp
@@ -753,7 +607,7 @@ __device__ void fwd_pair(const float* __restrict__ R,
 
 __global__ void __launch_bounds__(kThreads, 2) damsm_words_fwd(
     const float* __restrict__ regions, const float* __restrict__ words,
-    const int* __restrict__ lens, float* __restrict__ sims, DrDims d,
+    const int* __restrict__ lens, float* __restrict__ sims, Dims d,
     float gamma1, float gamma2) {
   const int t = blockIdx.x;
   const int i = blockIdx.y;
@@ -765,21 +619,7 @@ __global__ void __launch_bounds__(kThreads, 2) damsm_words_fwd(
   }
   const float* R = regions + (int64_t)i * d.S * d.D;
   const float* W = words + (int64_t)t * d.L * d.D;
-  switch ((n + 3) / 4) {
-#define EEGAN_FWD_CASE(Q)                                \
-  case Q:                                                \
-    fwd_pair<4 * Q>(R, W, n, gamma1, gamma2, d, out);    \
-    break;
-    EEGAN_FWD_CASE(1)
-    EEGAN_FWD_CASE(2)
-    EEGAN_FWD_CASE(3)
-    EEGAN_FWD_CASE(4)
-    EEGAN_FWD_CASE(5)
-    EEGAN_FWD_CASE(6)
-    EEGAN_FWD_CASE(7)
-    EEGAN_FWD_CASE(8)
-#undef EEGAN_FWD_CASE
-  }
+  EEGAN_WORDS_SWITCH(n, fwd_pair, R, W, n, gamma1, gamma2, d, out)
 }
 
 // dR pass 1: grid (Bt, Bi), one block per pair; two blocks fit on an SM
@@ -787,7 +627,7 @@ __global__ void __launch_bounds__(kThreads, 2) damsm_words_fwd(
 __global__ void __launch_bounds__(kThreads, 2) damsm_dr_pair(
     const float* __restrict__ regions, const float* __restrict__ words,
     const int* __restrict__ lens, const float* __restrict__ dsim,
-    float* __restrict__ scratch, DrDims d, float gamma1, float gamma2) {
+    float* __restrict__ scratch, Dims d, float gamma1, float gamma2) {
   const int t = blockIdx.x;
   const int i = blockIdx.y;
   const int n = min(max(lens[t], 0), d.L);
@@ -800,21 +640,7 @@ __global__ void __launch_bounds__(kThreads, 2) damsm_dr_pair(
   float* oA = scratch + slot * d.SP;
   float* oG = oA + plane;
   float* oC = scratch + 2 * plane + slot * d.D;
-  switch ((n + 3) / 4) {
-#define EEGAN_DR_CASE(Q)                                                     \
-  case Q:                                                                    \
-    dr_pair<4 * Q>(R, W, n, g, gamma1, gamma2, d, oA, oG, oC);               \
-    break;
-    EEGAN_DR_CASE(1)
-    EEGAN_DR_CASE(2)
-    EEGAN_DR_CASE(3)
-    EEGAN_DR_CASE(4)
-    EEGAN_DR_CASE(5)
-    EEGAN_DR_CASE(6)
-    EEGAN_DR_CASE(7)
-    EEGAN_DR_CASE(8)
-#undef EEGAN_DR_CASE
-  }
+  EEGAN_WORDS_SWITCH(n, dr_pair, R, W, n, g, gamma1, gamma2, d, oA, oG, oC)
 }
 
 // Pass 2: grid (ceil(D/kSumD), ceil(S/64), Bi). dR[i] for a 64 x kSumD
@@ -830,7 +656,7 @@ constexpr int kSumH = kSumD / 64;  // float4 columns of a thread
 
 __global__ void __launch_bounds__(kThreads) damsm_dr_sum(
     const float* __restrict__ words, const int* __restrict__ lens,
-    const float* __restrict__ scratch, float* __restrict__ dR, DrDims d) {
+    const float* __restrict__ scratch, float* __restrict__ dR, Dims d) {
   __shared__ __align__(16) float sa[2 * 32][kSumS];  // [k][s]
   __shared__ __align__(16) float sb[2 * 32][kSumD];  // [k][d]
   const int d0 = blockIdx.x * kSumD;
@@ -909,67 +735,201 @@ __global__ void __launch_bounds__(kThreads) damsm_dr_sum(
   }
 }
 
-template <int LT>
-__global__ void __launch_bounds__(kThreads) damsm_words_bwd_dw(
+// dW pass 1: grid (Bt, Bi), one block per pair, as damsm_dr_pair. The
+// scratch holds, per pair (t major), S rows of NQ floats of P in a slot of
+// S LT floats, then, after all the slots, L floats of kappa per pair.
+__global__ void __launch_bounds__(kThreads, 2) damsm_dw_pair(
     const float* __restrict__ regions, const float* __restrict__ words,
     const int* __restrict__ lens, const float* __restrict__ dsim,
-    float* __restrict__ dW, int Bi, int Bt, Dims d, float gamma1,
-    float gamma2) {
-  extern __shared__ float4 smem4[];
-  float* sW = reinterpret_cast<float*>(smem4);
-  float* sC = sW + LT * d.DP;
-  float* sdC = sC + LT * d.DP;
-  float* sP1 = sdC + LT * d.DP;
-  float* sP2 = sP1 + d.S * d.LP;
-  float* sP3 = sP2 + d.S * d.LP;
-  __shared__ WordStats st;
+    float* __restrict__ scratch, Dims d, float gamma1, float gamma2) {
   const int t = blockIdx.x;
-  const int c = threadIdx.x;  // this thread's column of dW (D <= kThreads)
-  const int len = lens[t];
+  const int i = blockIdx.y;
+  const int n = min(max(lens[t], 0), d.L);
+  if (n == 0) return;  // no valid word: damsm_dw_sum writes dW_t = 0
+  const float* R = regions + (int64_t)i * d.S * d.D;
+  const float* W = words + (int64_t)t * d.L * d.D;
+  const float g = dsim[(int64_t)i * d.Bt + t];
+  const int64_t slot = (int64_t)t * d.Bi + i;
+  float* oP = scratch + slot * d.S * d.LT;
+  float* oK = scratch + (int64_t)d.Bi * d.Bt * d.S * d.LT + slot * d.L;
+  EEGAN_WORDS_SWITCH(n, dw_pair, R, W, n, g, gamma1, gamma2, d, oP, oK)
+}
 
-  float acc[LT];
-#pragma unroll
-  for (int l = 0; l < LT; ++l) acc[l] = 0.0f;
+// dW pass 2: grid (ceil(D / kDwTile), Bt), one block per text and tile of
+// kDwTile columns. Its dynamic shared memory (dw_sum_floats) holds two
+// stages of kDwChunk regions: P rows (kDwChunk, NQ) and R columns
+// (kDwChunk, kDwTile), filled by cp.async while the other stage is summed;
+// after the loop the warps' partial sums take their place.
+constexpr int kDwTile = 64;   // columns of D per block
+constexpr int kDwChunk = 64;  // regions per stage
 
-  load_words<LT>(words, t, d, sW);
-  __syncthreads();
-  for (int i = 0; i < Bi; ++i) {
-    const float* R = regions + (int64_t)i * d.S * d.D;
-    pair_forward<LT>(R, len, gamma1, gamma2, d, sW, sC, sP1, sP2, st);
-    pair_backward<LT>(R, dsim[(int64_t)i * Bt + t], gamma1, gamma2, d, sW, sC,
-                      sP1, sP2, sdC, sP3, st);
-    if (c < d.D) {
-      // The cosine's direct term, then dA^T R.
+size_t dw_sum_floats(const Dims& d) {
+  const size_t stages = (size_t)2 * kDwChunk * (d.LT + kDwTile);
+  const size_t partials = (size_t)kWarps * d.LT * kDwTile;
+  return stages > partials ? stages : partials;
+}
+
+// 16 bytes from global to shared memory, asynchronously; zeros if !ok (src
+// must be a valid address all the same).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// dW_t for the block's tile, n valid words rounded up to NQ: the product
+// sum_i P_i^T R_i (M = NQ, N = kDwTile, K = Bi S) over the chunks of
+// kDwChunk regions, images and regions in index order. Warp w takes regions
+// w, w + kWarps, ... of each chunk; a lane keeps its kDwTile / 32 columns
+// for all NQ words in registers, fed by one float4 of P (a broadcast) per 4
+// words and one float of R per column. The warps' sums are then added in
+// warp order, (sum_i kappa_i) W_t is subtracted, and each output of the
+// tile is written once (0 at the padded words).
+template <int NQ>
+__device__ void dw_sum_block(const float* __restrict__ regions,
+                             const float* __restrict__ W,
+                             const float* __restrict__ P,
+                             const float* __restrict__ K, int n,
+                             const Dims& d, float* __restrict__ ksum,
+                             float* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  float* base = reinterpret_cast<float*>(smem4);
+  const int p_stage = kDwChunk * d.LT;  // floats of a stage's P rows
+  float* sP = base;                     // stage b at sP + b p_stage
+  float* sR = base + 2 * p_stage;       // stage b at sR + b kDwChunk kDwTile
+  constexpr int CPL = kDwTile / 32;  // columns per lane
+  constexpr int Q4 = NQ / 4;
+  constexpr int T4 = kDwTile / 4;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int d0 = blockIdx.x * kDwTile;
+  const int nch = (d.S + kDwChunk - 1) / kDwChunk;
+  const int total = d.Bi * nch;
+
+  auto stage = [&](int c, int buf) {
+    const int i = c / nch;
+    const int s0 = (c - i * nch) * kDwChunk;
+    const int rows = min(kDwChunk, d.S - s0);
+    const float* gP = P + (int64_t)i * d.S * d.LT + (int64_t)s0 * NQ;
+    for (int e = tid; e < rows * Q4; e += kThreads)
+      cp_async16(sP + buf * p_stage + 4 * e, gP + 4 * e, true);
+    const float* gR = regions + ((int64_t)i * d.S + s0) * d.D + d0;
+    for (int e = tid; e < rows * T4; e += kThreads) {
+      const int r = e / T4;
+      const int c4 = 4 * (e - r * T4);
+      const bool ok = d0 + c4 < d.D;
+      cp_async16(sR + (buf * kDwChunk + r) * kDwTile + c4,
+                 gR + (int64_t)r * d.D + (ok ? c4 : 0), ok);
+    }
+    cp_async_commit();
+  };
+
+  float acc[NQ][CPL];
 #pragma unroll
-      for (int l = 0; l < LT; ++l) {
-        if (l < d.L)
-          acc[l] += st.dcos[l] * (sC[l * d.DP + c] / st.den[l] -
-                                  st.cos[l] * sW[l * d.DP + c] / st.wn2[l]);
+  for (int l = 0; l < NQ; ++l)
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) acc[l][j] = 0.0f;
+
+  stage(0, 0);
+  for (int c = 0; c < total; ++c) {
+    const int buf = c & 1;
+    if (c + 1 < total) {
+      stage(c + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int rows = min(kDwChunk, d.S - (c % nch) * kDwChunk);
+    const float* p = sP + buf * p_stage;
+    const float* r = sR + buf * kDwChunk * kDwTile;
+    for (int k = warp; k < rows; k += kWarps) {
+      float rv[CPL];
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) rv[j] = r[k * kDwTile + lane + 32 * j];
+      const float4* pk = reinterpret_cast<const float4*>(p + k * NQ);
+#pragma unroll
+      for (int q = 0; q < Q4; ++q) {
+        const float4 a = pk[q];
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) {
+          acc[4 * q + 0][j] += a.x * rv[j];
+          acc[4 * q + 1][j] += a.y * rv[j];
+          acc[4 * q + 2][j] += a.z * rv[j];
+          acc[4 * q + 3][j] += a.w * rv[j];
+        }
       }
-      cols_accumulate<LT>(R, sP3, c, d, acc);
     }
     __syncthreads();
   }
-  if (c < d.D) {
-#pragma unroll
-    for (int l = 0; l < LT; ++l)
-      if (l < d.L) dW[((int64_t)t * d.L + l) * d.D + c] = acc[l];
+
+  // sum_i kappa_i, images in index order.
+  if (tid < n) {
+    float k = 0.0f;
+    for (int i = 0; i < d.Bi; ++i) k += K[(int64_t)i * d.L + tid];
+    ksum[tid] = k;
   }
+  float* red = base;  // (kWarps, NQ, kDwTile) partial sums
+#pragma unroll
+  for (int l = 0; l < NQ; ++l)
+#pragma unroll
+    for (int j = 0; j < CPL; ++j)
+      red[(warp * NQ + l) * kDwTile + lane + 32 * j] = acc[l][j];
+  __syncthreads();
+  for (int o = tid; o < d.L * kDwTile; o += kThreads) {
+    const int l = o / kDwTile;
+    const int cc = o - l * kDwTile;
+    const int col = d0 + cc;
+    if (col >= d.D) continue;
+    float v = 0.0f;
+    if (l < n) {
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) v += red[(w * NQ + l) * kDwTile + cc];
+      v -= ksum[l] * W[(int64_t)l * d.D + col];
+    }
+    out[(int64_t)l * d.D + col] = v;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 2) damsm_dw_sum(
+    const float* __restrict__ regions, const float* __restrict__ words,
+    const int* __restrict__ lens, const float* __restrict__ scratch,
+    float* __restrict__ dW, Dims d) {
+  __shared__ float ksum[32];  // sum_i kappa_i per word
+  const int t = blockIdx.y;
+  const int n = min(max(lens[t], 0), d.L);
+  const float* W = words + (int64_t)t * d.L * d.D;
+  const float* P = scratch + (int64_t)t * d.Bi * d.S * d.LT;
+  const float* K = scratch + (int64_t)d.Bi * d.Bt * d.S * d.LT +
+                   (int64_t)t * d.Bi * d.L;
+  float* out = dW + (int64_t)t * d.L * d.D;
+  if (n == 0) {  // no valid word: dW_t = 0
+    for (int o = threadIdx.x; o < d.L * kDwTile; o += kThreads) {
+      const int l = o / kDwTile;
+      const int col = blockIdx.x * kDwTile + o - l * kDwTile;
+      if (col < d.D) out[(int64_t)l * d.D + col] = 0.0f;
+    }
+    return;
+  }
+  EEGAN_WORDS_SWITCH(n, dw_sum_block, regions, W, P, K, n, d, ksum,
+                     out)
 }
 
 cudaError_t set_smem(const void* fn, size_t bytes) {
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
-}
-
-Dims make_dims(int S, int L, int D, int LT) {
-  Dims d;
-  d.S = S;
-  d.L = L;
-  d.D = D;
-  d.DP = D + 4;
-  d.LP = LT + 4;
-  return d;
 }
 
 bool shape_ok(int S, int L, int D) {
@@ -987,12 +947,12 @@ cudaError_t set_pair_smem(const void* fn, size_t bytes) {
 }
 
 // The forward. Its dynamic shared memory, which must cover
-// pair_smem_floats(d, 1), and LP come from the launch plan.
+// pair_smem_floats(d, 1, 4), and LP come from the launch plan.
 cudaError_t fwd(const float* r, const float* w, const int* lens, float* sims,
-                DrDims d, size_t smem_bytes, float g1, float g2,
+                Dims d, size_t smem_bytes, float g1, float g2,
                 cudaStream_t s) {
   if (d.LP < d.LT || d.LP % 4 != 0 ||
-      smem_bytes < pair_smem_floats(d, 1) * sizeof(float) || d.Bi > 65535)
+      smem_bytes < pair_smem_floats(d, 1, 4) * sizeof(float) || d.Bi > 65535)
     return cudaErrorInvalidValue;
   const cudaError_t err = set_pair_smem((const void*)damsm_words_fwd,
                                         smem_bytes);
@@ -1003,13 +963,13 @@ cudaError_t fwd(const float* r, const float* w, const int* lens, float* sims,
 }
 
 // The two launches of dR. The scratch (4 Bi Bt L (2 SP + D) bytes) and pass
-// 1's dynamic shared memory, which must cover pair_smem_floats(d, 3), come
+// 1's dynamic shared memory, which must cover pair_smem_floats(d, 3, 4), come
 // from the launch plan.
 cudaError_t bwd_dr(const float* r, const float* w, const int* lens,
-                   const float* dsim, float* dR, float* scratch, DrDims d,
+                   const float* dsim, float* dR, float* scratch, Dims d,
                    size_t smem_bytes, float g1, float g2, cudaStream_t s) {
   if (d.LP < d.LT || d.LP % 4 != 0 || d.SP < d.S || d.SP % 4 != 0 ||
-      smem_bytes < pair_smem_floats(d, 3) * sizeof(float) || d.Bi > 65535)
+      smem_bytes < pair_smem_floats(d, 3, 4) * sizeof(float) || d.Bi > 65535)
     return cudaErrorInvalidValue;
   cudaError_t err = set_pair_smem((const void*)damsm_dr_pair, smem_bytes);
   if (err != cudaSuccess) return err;
@@ -1022,28 +982,33 @@ cudaError_t bwd_dr(const float* r, const float* w, const int* lens,
   return cudaGetLastError();
 }
 
-template <int LT>
+// The two launches of dW. The scratch (4 Bi Bt (S LT + L) bytes), the
+// tile width, which must be kDwTile, and both dynamic shared memories, which
+// must cover pair_smem_floats(d, 3, 5) and dw_sum_floats(d), come from the
+// launch plan.
 cudaError_t bwd_dw(const float* r, const float* w, const int* lens,
-                   const float* dsim, float* dW, int Bi, int Bt, int S, int L,
-                   int D, size_t bytes, float g1, float g2, cudaStream_t s) {
-  const Dims d = make_dims(S, L, D, LT);
-  if (bytes < smem_floats(LT, d, 3, 3) * sizeof(float))
+                   const float* dsim, float* dW, float* scratch, Dims d,
+                   size_t pair_smem, size_t sum_smem, int tile, float g1,
+                   float g2, cudaStream_t s) {
+  if (d.LP < d.LT || d.LP % 4 != 0 || tile != kDwTile ||
+      pair_smem < pair_smem_floats(d, 3, 5) * sizeof(float) ||
+      sum_smem < dw_sum_floats(d) * sizeof(float) || d.Bi > 65535 ||
+      d.Bt > 65535)
     return cudaErrorInvalidValue;
-  cudaError_t err = set_smem((const void*)damsm_words_bwd_dw<LT>, bytes);
+  cudaError_t err = set_pair_smem((const void*)damsm_dw_pair, pair_smem);
   if (err != cudaSuccess) return err;
-  damsm_words_bwd_dw<LT><<<Bt, kThreads, bytes, s>>>(r, w, lens, dsim, dW, Bi,
-                                                      Bt, d, g1, g2);
+  damsm_dw_pair<<<dim3(d.Bt, d.Bi), kThreads, pair_smem, s>>>(
+      r, w, lens, dsim, scratch, d, g1, g2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = set_smem((const void*)damsm_dw_sum, sum_smem);
+  if (err != cudaSuccess) return err;
+  damsm_dw_sum<<<dim3((d.D + kDwTile - 1) / kDwTile, d.Bt), kThreads,
+                 sum_smem, s>>>(r, w, lens, scratch, dW, d);
   return cudaGetLastError();
 }
 
 }  // namespace
-
-#define EEGAN_DAMSM_DISPATCH(FN, ...)                   \
-  if (!shape_ok(S, L, D)) return cudaErrorInvalidValue; \
-  if (L <= 8) return FN<8>(__VA_ARGS__);                \
-  if (L <= 16) return FN<16>(__VA_ARGS__);              \
-  if (L <= 24) return FN<24>(__VA_ARGS__);              \
-  return FN<32>(__VA_ARGS__);
 
 // All float32 and contiguous: regions (Bi,S,D), words (Bt,L,D), lens (Bt,)
 // int32, sims and dsim (Bi,Bt), dR (Bi,S,D), dW (Bt,L,D). smem_bytes is the
@@ -1056,7 +1021,7 @@ extern "C" int eegan_damsm_words_fwd(const void* regions, const void* words,
                                      long long smem_bytes, float gamma1,
                                      float gamma2, void* stream) {
   if (!shape_ok(S, L, D) || Bi <= 0 || Bt <= 0) return cudaErrorInvalidValue;
-  const DrDims d = make_dr_dims(Bi, Bt, S, L, D, LP, 0);
+  const Dims d = make_dims(Bi, Bt, S, L, D, LP, 0);
   return fwd(static_cast<const float*>(regions),
              static_cast<const float*>(words), static_cast<const int*>(lens),
              static_cast<float*>(sims), d, (size_t)smem_bytes, gamma1, gamma2,
@@ -1073,7 +1038,7 @@ extern "C" int eegan_damsm_words_bwd_dr(const void* regions, const void* words,
                                         float gamma1, float gamma2,
                                         void* stream) {
   if (!shape_ok(S, L, D) || Bi <= 0 || Bt <= 0) return cudaErrorInvalidValue;
-  const DrDims d = make_dr_dims(Bi, Bt, S, L, D, LP, SP);
+  const Dims d = make_dims(Bi, Bt, S, L, D, LP, SP);
   return bwd_dr(static_cast<const float*>(regions),
                 static_cast<const float*>(words), static_cast<const int*>(lens),
                 static_cast<const float*>(dsim), static_cast<float*>(dR),
@@ -1081,17 +1046,22 @@ extern "C" int eegan_damsm_words_bwd_dr(const void* regions, const void* words,
                 gamma2, static_cast<cudaStream_t>(stream));
 }
 
+// dW: scratch is float32 of 4 Bi Bt (S LT + L) bytes; LP, the two shared
+// memories and the tile are the launch plan's.
 extern "C" int eegan_damsm_words_bwd_dw(const void* regions, const void* words,
                                         const void* lens, const void* dsim,
-                                        void* dW, int Bi, int Bt, int S, int L,
-                                        int D, long long smem_bytes,
+                                        void* dW, void* scratch, int Bi,
+                                        int Bt, int S, int L, int D, int LP,
+                                        long long pair_smem,
+                                        long long sum_smem, int tile,
                                         float gamma1, float gamma2,
                                         void* stream) {
-  EEGAN_DAMSM_DISPATCH(bwd_dw, static_cast<const float*>(regions),
-                       static_cast<const float*>(words),
-                       static_cast<const int*>(lens),
-                       static_cast<const float*>(dsim),
-                       static_cast<float*>(dW), Bi, Bt, S, L, D,
-                       (size_t)smem_bytes, gamma1, gamma2,
-                       static_cast<cudaStream_t>(stream))
+  if (!shape_ok(S, L, D) || Bi <= 0 || Bt <= 0) return cudaErrorInvalidValue;
+  const Dims d = make_dims(Bi, Bt, S, L, D, LP, 0);
+  return bwd_dw(static_cast<const float*>(regions),
+                static_cast<const float*>(words), static_cast<const int*>(lens),
+                static_cast<const float*>(dsim), static_cast<float*>(dW),
+                static_cast<float*>(scratch), d, (size_t)pair_smem,
+                (size_t)sum_smem, tile, gamma1, gamma2,
+                static_cast<cudaStream_t>(stream));
 }

@@ -8,20 +8,20 @@ words loss contrasts (reference hot spot `miscc/DAMSM_losses.py:272-342`).
 
 * :func:`words_similarity_fused` gives the grid, unscaled by gamma3. For
   CUDA tensors it is :class:`WordsSimilarity`: the forward is the kernel
-  ``damsm_words_fwd`` and the backward ``damsm_words_bwd_dr`` (the regions'
-  gradient) and ``damsm_words_bwd_dw`` (the words' gradient), each launched
-  only when its input needs a gradient; all three in
-  ``csrc/damsm_words.cu``. For CPU tensors it is the plain version
+  ``damsm_words_fwd`` and the backward ``damsm_dr_pair`` + ``damsm_dr_sum``
+  (the regions' gradient) and ``damsm_dw_pair`` + ``damsm_dw_sum`` (the
+  words' gradient), each launched only when its input needs a gradient;
+  all in ``csrc/damsm_words.cu``. For CPU tensors it is the plain version
   :func:`words_similarity_reference`, and autograd of it is the plain
   backward.
 * :func:`words_loss_fused` ports ``words_loss_pallas``: the bidirectional
   contrastive CE over that grid, a drop-in for ``losses.damsm.words_loss``.
 * ``words_similarity_forward.launches``, ``words_similarity_backward_dr
   .launches`` and ``words_similarity_backward_dw.launches`` count launches.
-* :func:`fwd_launch_plan`, :func:`dr_launch_plan` and :func:`smem_bytes`
-  are the kernels' launch plans and shared-memory layouts, plain Python
-  that the CPU tests reach; the C side only checks that a plan covers its
-  layout.
+* :func:`fwd_launch_plan`, :func:`dr_launch_plan` and
+  :func:`dw_launch_plan` are the kernels' launch plans and shared-memory
+  layouts, plain Python that the CPU tests reach; the C side only checks
+  that a plan covers its layout.
 
 Everything is float32: regions (Bi, S, D) or (Bi, 17, 17, D), words
 (Bt, L, D), cap_lens (Bt,) integers.
@@ -46,6 +46,8 @@ _SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block may use (Hopper)
 _SM_SMEM = 228 * 1024  # shared memory of one SM (Hopper)
 _THREADS = 256
 _SUM_TILE = (64, 64)  # damsm_dr_sum's (S, D) output tile
+_DW_TILE = 64  # damsm_dw_sum's columns of D per block (kDwTile)
+_DW_CHUNK = 64  # damsm_dw_sum's regions per shared-memory stage (kDwChunk)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -61,12 +63,12 @@ def _word_rows(L: int) -> Tuple[int, int]:
     return LT, LT if LT % 8 == 4 else LT + 4
 
 
-def _pair_smem(S: int, L: int, D: int, grids: int) -> int:
-    """Dynamic shared memory of a pair block (the forward, dR pass 1): the
-    (LT, D + 4) words and contexts, ``grids`` (S, LP) grids, 256 partials
-    and four 32-float per-word statistics, float32."""
+def _pair_smem(S: int, L: int, D: int, grids: int, stats: int = 4) -> int:
+    """Dynamic shared memory of a pair block (the forward, pass 1 of dR
+    and dW): the (LT, D + 4) words and contexts, ``grids`` (S, LP) grids,
+    256 partials and ``stats`` 32-float per-word statistics, float32."""
     LT, LP = _word_rows(L)
-    return 4 * (2 * LT * (D + 4) + grids * S * LP + _THREADS + 4 * 32)
+    return 4 * (2 * LT * (D + 4) + grids * S * LP + _THREADS + stats * 32)
 
 
 def _check_shape(what: str, Bi: int, Bt: int, S: int, L: int, D: int):
@@ -79,24 +81,10 @@ def _check_shape(what: str, Bi: int, Bt: int, S: int, L: int, D: int):
 
 
 def _blocks_per_sm(smem: int) -> int:
-    """Blocks of a pair kernel that fit on an SM: its shared memory (1 KB
-    reserved per block) and ``__launch_bounds__(256, 2)``, which caps the
-    registers at two blocks' worth and promises no more."""
+    """Blocks of a DAMSM kernel that fit on an SM: its dynamic shared
+    memory (1 KB reserved per block) and ``__launch_bounds__(256, 2)``,
+    which caps the registers at two blocks' worth and promises no more."""
     return min(2, _SM_SMEM // (smem + 1024))
-
-
-def smem_bytes(kind: str, S: int, L: int, D: int) -> int:
-    """Dynamic shared memory of one block of the forward (``"fwd"``) or dW
-    (``"dw"``) kernel, float32. The forward: the pair layout with one
-    (S, LP) grid (see :func:`fwd_launch_plan`). dW: three (LT, D + 4) tiles
-    of words, contexts and dC and three (S, LT + 4) grids of probabilities,
-    with LT = L rounded up to 8, 16, 24 or 32 (its template)."""
-    if kind == "fwd":
-        return _pair_smem(S, L, D, 1)
-    if kind != "dw":
-        raise ValueError(f"kind must be 'fwd' or 'dw', got {kind!r}")
-    LT = min(_round_up(L, 8), 32)
-    return 4 * (3 * LT * (D + 4) + 3 * S * (LT + 4))
 
 
 def fwd_launch_plan(Bi: int, Bt: int, S: int, L: int, D: int) -> dict:
@@ -110,7 +98,7 @@ def fwd_launch_plan(Bi: int, Bt: int, S: int, L: int, D: int) -> dict:
     Raises ValueError for shapes the kernel does not take.
     """
     _check_shape("the DAMSM forward", Bi, Bt, S, L, D)
-    smem = smem_bytes("fwd", S, L, D)
+    smem = _pair_smem(S, L, D, 1)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"the DAMSM forward needs {smem} bytes of shared "
                          f"memory at S={S}, L={L}, D={D} (limit "
@@ -146,6 +134,43 @@ def dr_launch_plan(Bi: int, Bt: int, S: int, L: int, D: int) -> dict:
         scratch_bytes=4 * Bi * Bt * L * (2 * SP + D))
 
 
+def dw_launch_plan(Bi: int, Bt: int, S: int, L: int, D: int,
+                   tile: int = _DW_TILE) -> dict:
+    """The two launches of kernel 5 (dW) at these shapes.
+
+    Pass 1, ``damsm_dw_pair``: one block per (text, image) pair, dR's pair
+    code with a fifth per-word statistic (|W_l|^2); it writes the pair's
+    P = dA + (dcos / den) attn2 (S rows of NQ floats, in a slot of S * LT)
+    and kappa = dcos cos / |W|^2 (L floats) to a float32 scratch. Pass 2,
+    ``damsm_dw_sum``: one block per text and ``tile`` columns of D sums
+    P_i^T R_i over the images in index order, staged in two buffers of 64
+    regions, then subtracts (sum_i kappa_i) W_t. ``tile`` is the C side's
+    kDwTile (64; 32 only for a copy built with it). Raises ValueError for
+    shapes the kernels do not take.
+    """
+    _check_shape("dW", Bi, Bt, S, L, D)
+    if Bt > 65535:
+        raise ValueError(f"dW takes at most 65535 texts, got {Bt}")
+    if tile not in (32, 64):
+        raise ValueError(f"dW pass 2's tile is 32 or 64 columns, got {tile}")
+    LT, LP = _word_rows(L)
+    smem = _pair_smem(S, L, D, 3, stats=5)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"dW pass 1 needs {smem} bytes of shared memory at "
+                         f"S={S}, L={L}, D={D} (limit {_SMEM_LIMIT})")
+    # Two stages of P rows and R columns; after the loop the 8 warps'
+    # (LT, tile) partial sums in their place.
+    sum_smem = 4 * max(2 * _DW_CHUNK * (LT + tile), 8 * LT * tile)
+    sum_grid = (-(-D // tile), Bt)
+    return dict(
+        threads=_THREADS, LP=LP, tile=tile,
+        pair_grid=(Bt, Bi), pair_blocks=Bt * Bi, pair_smem_bytes=smem,
+        pair_blocks_per_sm=_blocks_per_sm(smem),
+        sum_grid=sum_grid, sum_blocks=sum_grid[0] * Bt,
+        sum_smem_bytes=sum_smem, sum_blocks_per_sm=_blocks_per_sm(sum_smem),
+        scratch_bytes=4 * Bi * Bt * (S * LT + L))
+
+
 def words_similarity_reference(regions, words, cap_lens, gamma1: float = 5.0,
                                gamma2: float = 5.0) -> torch.Tensor:
     """Plain PyTorch version of the three kernels' function: the
@@ -161,8 +186,8 @@ def _lib():
         lib.eegan_damsm_words_fwd.argtypes = [p] * 4 + [i] * 6 + [n, f, f, p]
         lib.eegan_damsm_words_bwd_dr.argtypes = (
             [p] * 6 + [i] * 7 + [n, f, f, p])
-        lib.eegan_damsm_words_bwd_dw.argtypes = [p] * 5 + [i] * 5 + [n, f, f,
-                                                                     p]
+        lib.eegan_damsm_words_bwd_dw.argtypes = (
+            [p] * 6 + [i] * 6 + [n, n, i, f, f, p])
         for name in ("eegan_damsm_words_fwd", "eegan_damsm_words_bwd_dr",
                      "eegan_damsm_words_bwd_dw"):
             getattr(lib, name).restype = ctypes.c_int
@@ -203,14 +228,6 @@ def _prepare(regions, words, cap_lens):
     regions, words = (t if t.data_ptr() % 16 == 0 else t.clone()
                       for t in (regions.contiguous(), words.contiguous()))
     return regions, words, lens, (Bi, Bt, S, L, D), _lib()
-
-
-def _smem_checked(kind: str, S: int, L: int, D: int) -> int:
-    need = smem_bytes(kind, S, L, D)
-    if need > _SMEM_LIMIT:
-        raise ValueError(f"S={S}, L={L}, D={D} needs {need} bytes of shared "
-                         f"memory per block (limit {_SMEM_LIMIT})")
-    return need
 
 
 def _check_err(err: int, what: str) -> None:
@@ -255,11 +272,14 @@ def _backward(kind: str, regions, words, cap_lens, dsim, gamma1, gamma2):
                 plan["LP"], plan["SP"], plan["pair_smem_bytes"],
                 float(gamma1), float(gamma2), stream)
         else:
+            plan = dw_launch_plan(Bi, Bt, S, L, D)
+            scratch = torch.empty(plan["scratch_bytes"] // 4,
+                                  dtype=torch.float32, device=r.device)
             err = lib.eegan_damsm_words_bwd_dw(
                 r.data_ptr(), w.data_ptr(), lens.data_ptr(), g.data_ptr(),
-                out.data_ptr(), Bi, Bt, S, L, D,
-                _smem_checked("dw", S, L, D), float(gamma1), float(gamma2),
-                stream)
+                out.data_ptr(), scratch.data_ptr(), Bi, Bt, S, L, D,
+                plan["LP"], plan["pair_smem_bytes"], plan["sum_smem_bytes"],
+                plan["tile"], float(gamma1), float(gamma2), stream)
     _check_err(err, f"damsm_words_bwd_{kind}")
     return out
 
@@ -275,8 +295,9 @@ def words_similarity_backward_dr(regions, words, cap_lens, dsim,
 
 def words_similarity_backward_dw(regions, words, cap_lens, dsim,
                                  gamma1: float = 5.0, gamma2: float = 5.0):
-    """Kernel 5: the words' gradient (Bt, L, D) from dsim (Bi, Bt); exactly
-    zero at padded words."""
+    """Kernel 5: the words' gradient (Bt, L, D) from dsim (Bi, Bt), in the
+    two launches of :func:`dw_launch_plan` (counted as one); exactly zero
+    at padded words."""
     out = _backward("dw", regions, words, cap_lens, dsim, gamma1, gamma2)
     words_similarity_backward_dw.launches += 1
     return out

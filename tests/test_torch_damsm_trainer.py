@@ -16,6 +16,14 @@
   ENCODER_LR/100 (PERF.md §2's bar for an Adam step: its first step
   moves an entry by about lr·sign(g), whatever g's size), and every tensor
   the step trains has moved.
+* The float32 step against the same step in float64 (``factory.
+  to_float64_``), from the same start: the gradients each Adam took lie
+  1.65e-4 (relative L2) from float64's over the Inception trunk, 5.4e-3 at
+  its worst tensor (Mixed_7c.branch3x3_1), and 3e-6 / 5e-6 over the text
+  encoder and the image heads; held to 1e-3, 5e-2 and 1e-4. This is the
+  yardstick ``chip_smoke.py`` phase 15 holds the card's trunk gradients
+  to: float32 rounding moves them by about 1e-4 of their norm, where
+  cuDNN's float32 conv forward moves them by a few per cent.
 * ``load_damsm_encoders`` against the JAX package's loader on random
   AttnGAN-keyed ``.pth`` files (the image side from
   ``tests/torch_inception_ref.py``): encoder outputs within 1e-4 of the
@@ -46,7 +54,11 @@ from eegan_tpu.training.state import FrozenEncoders as JaxFrozenEncoders
 from eegan_tpu.utils import torch_convert
 from eegan_tpu_torch.config import Config
 from eegan_tpu_torch.data.synthetic import synthetic_batch
-from eegan_tpu_torch.models.factory import build_models, randomize_
+from eegan_tpu_torch.models.factory import (
+    build_models,
+    randomize_,
+    to_float64_,
+)
 from eegan_tpu_torch.training.damsm_trainer import make_damsm_train_step
 from eegan_tpu_torch.training.state import FrozenEncoders
 from eegan_tpu_torch.utils.convert import (
@@ -210,6 +222,41 @@ def test_damsm_step_parameters_match_jax(damsm_step):
                 np.testing.assert_allclose(got[k], w.numpy(), rtol=1e-6,
                                            err_msg=k)
         assert n_off <= 0.01 * n, (name, n_off, n)
+
+
+def test_damsm_step_float32_gradients_against_float64(damsm_step):
+    cfg = damsm_step["cfg"]
+    models = build_models(cfg, N_WORDS, device="cpu")
+    for seed, module in ((1, models.text_encoder),
+                         (2, models.image_encoder)):
+        to_float64_(randomize_(module, seed))
+    models.text_encoder.drop.p = 0.0
+    batch = synthetic_batch(cfg, B, seed=4, n_words=N_WORDS)
+    batch["class_ids"] = CLASS_IDS
+    step, init_opt = make_damsm_train_step(cfg, models)
+    opts64 = init_opt(models.text_encoder, models.image_encoder)
+    step(opts64, batch)
+
+    def moments(opts, module, j, select):
+        return {k: opts[j].state[p]["exp_avg"].double()
+                for k, p in module.named_parameters() if select(k)}
+
+    for name, j, select, bar, worst_bar in (
+            ("text", 0, lambda k: True, 1e-4, None),
+            ("heads", 1, lambda k: k.startswith("emb_"), 1e-4, None),
+            ("trunk", 1, lambda k: not k.startswith("emb_"), 1e-3, 5e-2)):
+        enc = ("text_encoder", "image_encoder")[j]
+        got = moments(damsm_step["opts"], getattr(damsm_step["models"], enc),
+                      j, select)
+        want = moments(opts64, getattr(models, enc), j, select)
+        assert got and set(got) == set(want), name
+        flat = [torch.cat([d[k].flatten() for k in want]) for d in (got, want)]
+        rel = float((flat[0] - flat[1]).norm() / flat[1].norm())
+        assert rel <= bar, (name, rel)
+        if worst_bar is not None:
+            worst = max(float((got[k] - want[k]).norm() / want[k].norm())
+                        for k in want)
+            assert worst <= worst_bar, (name, worst)
 
 
 def test_text_dropout_follows_its_generator():
