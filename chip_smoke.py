@@ -76,15 +76,35 @@ kernel families on):
    output (the directory branch); and a float32 DAMSM pretraining step
    on cuda (TF32 off) against the CPU step: metrics within 1e-3
    relative; the gradients Adam took (from its moments) within 1e-3
-   relative L2 and the parameters within PERF.md §2's bar for an Adam
-   step, for the text encoder and the image encoder's heads, and for the
-   whole image encoder in a second cuda step with cuDNN off (with cuDNN
-   the Inception trunk's gradients are held to 1e-1 relative L2); then
-   the trunk's gradients against the same step in float64 on the CPU:
-   with cuDNN off, and with cuDNN's conv passes called from an explicit
-   autograd Function (cuDNN off for one kind of operation at a time),
-   within twice the CPU float32 step's distance; the native route's
-   distance and four convs' float32 passes are reported.
+   relative L2 (5e-2 at the worst tensor) and the parameters within
+   PERF.md §2's bar for an Adam step, for the text encoder, the image
+   encoder's heads and its Inception trunk with cuDNN, and for the whole
+   image encoder in a second cuda step with cuDNN off; then the trunk's
+   gradients against the same step in float64 on the CPU, within twice
+   the CPU float32 step's distance with cuDNN, without it, and with the
+   convs and batch norms in an explicit autograd Function (cuDNN on for
+   every kind, then off for one kind at a time); reported: the trunk with
+   its padded average pools in channels_last memory (PyTorch's CUDA
+   backward of that pool is wrong), and four convs' float32 passes; the
+   Inception's pool's input gradient within 1e-6 of float64.
+
+The evaluation slice, run after phase 15's CLIs in phase 14's directory
+(the demo corpus and the trainer's ``Model/netG_1.pth``):
+
+16. ``Tester.generate`` in float32 on cuda against the CPU (cfg/bird.yml
+   at full width, 16 images): the images within 1e-3, the image codes and
+   similarities within 1e-3 relative, the R-precision hits equal where
+   the top two similarities differ by more than 1e-3, kernel 1 launched
+   14 times per batch, and ``FIDExtractor.features`` within 1e-3 of the
+   largest feature; the sweep at B=32 in bf16 (images/s without and with
+   PNG writes, launches per batch, one batch's device busy time and idle
+   share), FID feature and IS probability images/s and the IS fine-tune
+   step's ms; the CLIs as subprocesses (``test`` with 1024 images and
+   R-precision, ``fid_score --dataset_npz`` then its ``Epoch_1_0`` sweep,
+   ``finetune_inception`` then ``inception_score --is_classifier``,
+   ``sample --from_dataset --model_dir``); and a Trainer of two epochs
+   whose epoch-1 snapshot an ``AsyncEvaluator`` scores (FID,
+   R-precision) while epoch 2 trains.
 
 The last lines are one JSON ``kernels`` line, the card's name and power
 limit as nvidia-smi prints them, and ``{"ok": true, "device": {...}}``;
@@ -1154,12 +1174,13 @@ TRAIN_LAUNCHES = dict(affine_mask_relu=14, affine_mask_relu_backward=14,
                       words_similarity_backward_dr=1)
 
 
-def trainer_config(data_dir: str):
-    """cfg/bird.yml in bf16 with both kernel families on, reading the demo
-    corpus (two captions per image) with random frozen encoders."""
+def trainer_config(data_dir: str, dtype: str = "bfloat16"):
+    """cfg/bird.yml (bf16 by default) with both kernel families on, reading
+    the demo corpus (two captions per image) with random frozen
+    encoders."""
     from eegan_tpu_torch.config import apply_overrides
 
-    return apply_overrides(bird_config("bfloat16"), [
+    return apply_overrides(bird_config(dtype), [
         f"DATA_DIR={data_dir}", "TEXT.CAPTIONS_PER_IMAGE=2",
         "TEXT.DAMSM_NAME=''", "RUNTIME.ALLOW_RANDOM_ENCODERS=true"])
 
@@ -1385,6 +1406,446 @@ def phase_clis(tmp: str):
     return dict(pretrain_s=pretrain_s, train_s=train_s)
 
 
+# ---------------------------------------------------------------------------
+# The evaluation slice: Tester, FID, IS and its fine-tune, the eval CLIs,
+# evaluation overlapped with training (phase 16)
+# ---------------------------------------------------------------------------
+
+EVAL_PARITY_IMAGES = 16  # Tester.generate, float32, cuda against the CPU
+EVAL_PARITY_BATCH = 8
+EVAL_CLI_IMAGES = 1024  # the test CLI's --sampling_nums
+EVAL_TIMED_IMAGES = 256  # in-process sweep timing, B=32, bf16
+EVAL_OVERLAP_IMAGES = 256  # the AsyncEvaluator's eval_nums
+FID_DATASET_IMAGES = 512  # fid_score --dataset_npz over the test split
+FINETUNE_ITERS = 4
+R_VAL = 100
+
+
+def eval_tester(config, device, model_dir, batch_size):
+    """A Tester over the trainer's epoch-1 generator snapshot and frozen
+    encoders with random weights from the seed (the same on every
+    device)."""
+    import torch
+
+    from eegan_tpu_torch.data.datasets import TextOnlyDataset
+    from eegan_tpu_torch.evaluation.tester import Tester
+    from eegan_tpu_torch.models.factory import build_models, randomize_
+    from eegan_tpu_torch.training.checkpoint import CheckpointManager
+    from eegan_tpu_torch.training.state import create_train_state
+
+    dataset = TextOnlyDataset(config, split="test")
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        models = build_models(config, dataset.n_words, device)
+    for i, m in enumerate((models.text_encoder, models.image_encoder)):
+        randomize_(m, SEED + 400 + i)
+    _, frozen = create_train_state(config, models)
+    CheckpointManager(model_dir).load_generator(1, models.generator,
+                                                models.attr_enhance)
+    return Tester(config, models, frozen, dataset, batch_size=batch_size)
+
+
+def recorded(fn, rows):
+    """``fn``, appending each call's result to ``rows``."""
+    def call(*args):
+        out = fn(*args)
+        rows.append(out)
+        return out
+    return call
+
+
+def phase_eval_parity(data_dir, model_dir):
+    """(16a) ``Tester.generate`` in float32 (TF32 off) on cuda against the
+    same call on the CPU: cfg/bird.yml at full width with the trainer's
+    epoch-1 weights, EVAL_PARITY_IMAGES images in batches of
+    EVAL_PARITY_BATCH, the same noise. The images within 1e-3, the image
+    codes and the similarities within 1e-3 of their largest magnitude, the
+    R-precision hits equal wherever the top two similarities differ by
+    more than 1e-3 (the rest counted), 14 launches of kernel 1 per batch;
+    and ``FIDExtractor.features`` on the CPU's images within 1e-3 of the
+    largest feature."""
+    import numpy as np
+    import torch
+
+    from eegan_tpu_torch.evaluation.fid import FIDExtractor
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    config = trainer_config(data_dir, "float32")
+    z_dim = config.GAN.Z_DIM
+
+    def noise(batch_idx, b):
+        gen = torch.Generator().manual_seed(SEED + 500 + batch_idx)
+        return torch.randn((b, z_dim), generator=gen)
+
+    runs = {}
+    for device in ("cuda", "cpu"):
+        tester = eval_tester(config, device, model_dir, EVAL_PARITY_BATCH)
+        imgs, sims, launches = [], [], []
+        tester.sample_step = recorded(counted(tester.sample_step, launches),
+                                      imgs)
+        tester._similarities = recorded(tester._similarities, sims)
+        result = tester.generate(
+            "", sampling_nums=EVAL_PARITY_IMAGES, seed=SEED,
+            compute_r_precision=True, r_val=R_VAL, saving_images=False,
+            noise_fn=noise)
+        runs[device] = dict(
+            imgs=[[im.float().cpu() for im in out] for out in imgs],
+            codes=[c for c, _ in sims], sims=[s for _, s in sims],
+            launches=launches, result=result)
+    cuda, cpu = runs["cuda"], runs["cpu"]
+    batches = EVAL_PARITY_IMAGES // EVAL_PARITY_BATCH
+    if cuda["launches"] != [launches_of(affine_mask_relu=14)] * batches:
+        fail(f"Tester.generate launches per batch {cuda['launches']}")
+    img_err = max(float((a - b).abs().max())
+                  for got, want in zip(cuda["imgs"], cpu["imgs"])
+                  for a, b in zip(got, want))
+    rel = lambda got, want: max(
+        float(np.abs(g - w).max() / np.abs(w).max())
+        for g, w in zip(got, want))
+    code_err, sim_err = (rel(cuda[k], cpu[k]) for k in ("codes", "sims"))
+    ties = 0
+    for got, want in zip(cuda["sims"], cpu["sims"]):
+        top2 = np.sort(want, axis=1)[:, -2:]
+        close = top2[:, 1] - top2[:, 0] <= 1e-3
+        ties += int(close.sum())
+        differ = (np.argmax(got, 1) == 0) != (np.argmax(want, 1) == 0)
+        if (differ & ~close).any():
+            fail(f"R-precision hits differ on cuda: {got} vs {want}")
+    if img_err > 1e-3 or code_err > 1e-3 or sim_err > 1e-3:
+        fail(f"Tester.generate cuda vs cpu: images {img_err}, codes "
+             f"{code_err}, similarities {sim_err}")
+    images = np.concatenate([out[-1].numpy() for out in cpu["imgs"]])
+    feats = {dev: FIDExtractor(batch_size=EVAL_PARITY_BATCH,
+                               device=dev).features(images)
+             for dev in ("cuda", "cpu")}
+    feat_err = float(np.abs(feats["cuda"] - feats["cpu"]).max()
+                     / np.abs(feats["cpu"]).max())
+    if feat_err > 1e-3:
+        fail(f"FIDExtractor.features cuda vs cpu: {feat_err}")
+    result = dict(images=EVAL_PARITY_IMAGES, batch=EVAL_PARITY_BATCH,
+                  image_max_abs_err=img_err, code_rel_err=code_err,
+                  similarity_rel_err=sim_err, near_ties=ties,
+                  fid_feature_rel_err=feat_err,
+                  r_precision={d: runs[d]["result"] for d in runs},
+                  launches_per_batch=cuda["launches"][0])
+    log(f"phase 16 parity ok: Tester.generate float32 (bird.yml, "
+        f"{EVAL_PARITY_IMAGES} images) on cuda against the CPU: images "
+        f"{img_err}, codes {code_err}, similarities {sim_err} (relative), "
+        f"hits equal ({ties} near ties); FID features {feat_err}; kernel 1 "
+        f"launched 14 times per batch")
+    return result
+
+
+def informative_inception(data_dir, path):
+    """Save to ``path`` a torchvision-layout Inception-v3 with random
+    weights from the seed whose batch norms hold the statistics of a batch
+    of the corpus's test images (one train-mode pass, momentum 1). At a
+    random init the features barely vary with the image, and every FID is
+    about 0; normalised over real images they do vary."""
+    import numpy as np
+    import torch
+
+    from eegan_tpu_torch.data.datasets import TextImageDataset
+    from eegan_tpu_torch.models.inception import InceptionV3
+    from eegan_tpu_torch.models.layers import resize_bilinear_half_pixel
+
+    dataset = TextImageDataset(trainer_config(data_dir), split="test")
+    rng = np.random.default_rng([SEED])
+    images = np.stack([dataset.sample(i, rng)["img256"]
+                       for i in range(TRAIN_BATCH)])
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED + 600)
+        model = InceptionV3(num_classes=1000)
+    for m in model.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.momentum = 1.0
+    model = model.cuda().to(memory_format=torch.channels_last).train()
+    with torch.no_grad():
+        model(resize_bilinear_half_pixel(
+            torch.from_numpy(images).cuda().permute(0, 3, 1, 2), (299, 299)))
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, path)
+
+
+def run_clis_together(jobs, logdir):
+    """Start every ``python -m`` command of ``jobs`` (name -> arguments)
+    at once, wait for all, fail on any non-zero exit; name -> standard
+    output."""
+    procs = {}
+    for name, args in jobs.items():
+        out = open(os.path.join(logdir, f"{name}.out"), "w+")
+        procs[name] = (subprocess.Popen(
+            [sys.executable, "-m", *args], cwd=ROOT, stdout=out,
+            stderr=subprocess.STDOUT, text=True), out)
+    outputs = {}
+    for name, (proc, out) in procs.items():
+        try:
+            proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+        out.seek(0)
+        outputs[name] = out.read()
+        out.close()
+        if proc.returncode != 0:
+            fail(f"{name} exit {proc.returncode}:\n{outputs[name][-4000:]}")
+    return outputs
+
+
+def phase_eval_clis(tmp, data_dir, model_dir):
+    """(16b) the evaluation CLIs as subprocesses on the card: ``test``
+    (EVAL_CLI_IMAGES PNGs and an R-precision in [0, 1]), ``fid_score
+    --dataset_npz`` over the test split (``--inception_ckpt``:
+    ``informative_inception``'s), ``finetune_inception`` for
+    FINETUNE_ITERS iterations and ``sample --from_dataset --model_dir``
+    together; then the ``fid_score`` sweep of Epoch_1_0 against the npz (a
+    finite FID >= 0) and ``inception_score --is_classifier`` on it (a
+    finite IS in [1, CLASS_NUM])."""
+    import re
+
+    cfg = os.path.join(ROOT, "cfg", "bird.yml")
+    inception = os.path.join(tmp, "inception_random.pth")
+    informative_inception(data_dir, inception)
+    sets = ["--set", f"DATA_DIR={data_dir}",
+            "--set", "TEXT.CAPTIONS_PER_IMAGE=2",
+            "--set", "RUNTIME.ALLOW_RANDOM_ENCODERS=true",
+            "--set", "RUNTIME.PALLAS_AFFINE=true", "--set", f"SAVE_DIR={tmp}"]
+    npz = os.path.join(tmp, "test_stats.npz")
+    gen_root = os.path.join(tmp, "eval", "GenImage")
+    classifier = os.path.join(tmp, "is", "is_inception.pt")
+    classes = bird_config("float32").TRAIN.CLASS_NUM
+    t0 = time.perf_counter()
+    first = run_clis_together({
+        "test": ["eegan_tpu_torch.test", "--cfg", cfg, "--model_dir",
+                 model_dir, "--select_epochs", "1", "--sampling_nums",
+                 str(EVAL_CLI_IMAGES), "--saving_image", "--compare_sim",
+                 "--output_dir", "eval", *sets],
+        "fid_dataset": ["eegan_tpu_torch.fid_score", "--dataset_npz", npz,
+                        "--cfg", cfg, "--max_images",
+                        str(FID_DATASET_IMAGES), "--inception_ckpt",
+                        inception, *sets],
+        "finetune": ["eegan_tpu_torch.finetune_inception", "--cfg", cfg,
+                     "--output_dir", "is", "--epochs", "1", "--max_iters",
+                     str(FINETUNE_ITERS), "--set", "RUNTIME.DATA_WORKERS=2",
+                     *sets],
+        "sample": ["eegan_tpu_torch.sample", "--cfg", cfg, "--from_dataset",
+                   "--model_dir", model_dir, "--epoch", "1",
+                   "--output_dir", "samples", *sets]}, tmp)
+    first_s = time.perf_counter() - t0
+    folder = os.path.join(gen_root, "Epoch_1_0")
+    pngs = len([f for f in os.listdir(folder) if f.endswith(".png")])
+    found = re.search(r"'r_precision_mean': ([0-9.e-]+)", first["test"])
+    if pngs != EVAL_CLI_IMAGES or not found \
+            or not 0.0 <= float(found.group(1)) <= 1.0:
+        fail(f"test CLI: {pngs} PNGs, output {first['test'][-2000:]}")
+    r_precision = float(found.group(1))
+    for path in (npz, classifier, os.path.join(
+            tmp, "samples", "cap_0", "samples.png"), os.path.join(
+            tmp, "samples", "real_images", "real_images.png")):
+        if not os.path.isfile(path):
+            fail(f"the eval CLIs did not write {path}")
+    t0 = time.perf_counter()
+    second = run_clis_together({
+        "fid_sweep": ["eegan_tpu_torch.fid_score", "--eval_image_folder",
+                      gen_root, "--compared_path", npz, "--select_epochs",
+                      "1", "--inception_ckpt", inception],
+        "inception_score": ["eegan_tpu_torch.inception_score",
+                            "--eval_image_folder", gen_root,
+                            "--select_epochs", "1", "--is_classifier",
+                            classifier, "--num_classes", str(classes + 1),
+                            "--cfg", cfg]}, tmp)
+    second_s = time.perf_counter() - t0
+    fid = re.search(r"Epoch_1_0: FID = ([0-9.e+-]+)", second["fid_sweep"])
+    score = re.search(r"Epoch_1_0: IS = ([0-9.e+-]+)",
+                      second["inception_score"])
+    if not fid or not math.isfinite(float(fid.group(1))) \
+            or float(fid.group(1)) < 0:
+        fail(f"fid_score sweep: {second['fid_sweep'][-2000:]}")
+    if not score or not 1.0 <= float(score.group(1)) <= classes:
+        fail(f"inception_score: {second['inception_score'][-2000:]}")
+    result = dict(test_images=pngs, test_r_precision=r_precision,
+                  fid=float(fid.group(1)), inception_score=float(
+                      score.group(1)), first_group_s=first_s,
+                  second_group_s=second_s)
+    log(f"phase 16 CLIs ok: test wrote {pngs} PNGs, R-precision "
+        f"{r_precision}; fid_score {result['fid']}; finetune_inception "
+        f"{FINETUNE_ITERS} iterations, inception_score "
+        f"{result['inception_score']}; sample --from_dataset --model_dir "
+        f"({first_s:.1f} s and {second_s:.1f} s)")
+    return result
+
+
+def phase_eval_overlap(tmp, data_dir):
+    """(16c) a Trainer for two epochs with an AsyncEvaluator (FID against
+    the test split's statistics under the evaluator's own network, random
+    from its seed; R-precision; EVAL_OVERLAP_IMAGES images): epoch
+    1's snapshot is scored on the evaluator's stream while epoch 2 trains.
+    The result holds eval/fid and eval/r_precision, no eval/error; the
+    trainer's images/s at the end of each epoch."""
+    import torch
+
+    from eegan_tpu_torch.data.datasets import TextOnlyDataset
+    from eegan_tpu_torch.evaluation.async_eval import (
+        AsyncEvaluator,
+        eval_bundle,
+    )
+    from eegan_tpu_torch.evaluation.fid import (
+        FIDExtractor,
+        dataset_statistics,
+        save_npz_stats,
+    )
+    from eegan_tpu_torch.evaluation.tester import Tester
+    from eegan_tpu_torch.training.trainer import Trainer
+
+    config = trainer_config(data_dir)
+    stats_npz = os.path.join(tmp, "overlap_stats.npz")
+    save_npz_stats(stats_npz, *dataset_statistics(
+        config, FIDExtractor(batch_size=TRAIN_BATCH, device="cuda"),
+        n_images=EVAL_OVERLAP_IMAGES))
+    trainer = Trainer(config, os.path.join(tmp, "overlap"), seed=SEED)
+    tester = Tester(config, eval_bundle(trainer.models), trainer.frozen,
+                    TextOnlyDataset(config, split="test"),
+                    batch_size=TRAIN_BATCH)
+    evaluator = AsyncEvaluator(tester, writer=trainer.writer,
+                               real_stats=stats_npz,
+                               eval_nums=EVAL_OVERLAP_IMAGES,
+                               compute_r_precision=True)
+    trainer.async_eval = evaluator
+    ips, ends = [], []
+    save_images = trainer.save_images
+
+    def save_images_at_epoch_end(epoch):
+        torch.cuda.synchronize()
+        ips.append(trainer.timer.images_per_sec)
+        ends.append(time.perf_counter())
+        save_images(epoch)
+
+    trainer.save_images = save_images_at_epoch_end
+    t0 = time.perf_counter()
+    trainer.train(max_epochs=2)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    trainer.close()  # waits for the evaluation
+    wait_s = time.perf_counter() - t0 - train_s
+    res = evaluator.results.get(1, {})
+    if "eval/error" in res or not math.isfinite(res.get("eval/fid", math.nan)) \
+            or res["eval/fid"] < 0 \
+            or not 0.0 <= res.get("eval/r_precision", -1.0) <= 1.0:
+        fail(f"overlapped evaluation of epoch 1: {evaluator.results}")
+    iters = len(trainer.pipeline)
+    result = dict(eval=res, images_per_s_epoch_1=ips[0],
+                  images_per_s_epochs_1_2=ips[1],
+                  ms_per_iteration_epoch_2=(ends[1] - ends[0]) / iters * 1e3,
+                  train_s=train_s, eval_wait_after_training_s=wait_s,
+                  iterations_per_epoch=iters)
+    log(f"phase 16 overlap ok: epoch 1 scored while epoch 2 trained: {res};"
+        f" trainer {ips[0]} images/s after epoch 1, {ips[1]} after epoch 2 "
+        f"(the evaluation running), {result['ms_per_iteration_epoch_2']} ms "
+        f"per iteration of epoch 2 (its save_images included); waited "
+        f"{wait_s:.1f} s for the evaluation after training")
+    return result
+
+
+def phase_eval_times(data_dir, model_dir):
+    """(16d) times on the card, bf16, B=32: the sweep's generation +
+    R-precision (``Tester.generate``, EVAL_TIMED_IMAGES images) without
+    and with PNG writes, and its kernel launches per batch; FID feature
+    extraction and IS probabilities images/s (``time_host``); the IS
+    fine-tune step's ms; one sweep batch's device busy time and idle share
+    (torch.profiler)."""
+    import numpy as np
+    import torch
+
+    from eegan_tpu_torch.data.synthetic import synthetic_batch
+    from eegan_tpu_torch.evaluation import inception_finetune
+    from eegan_tpu_torch.evaluation.fid import FIDExtractor
+    from eegan_tpu_torch.evaluation.inception_score import InceptionScorer
+
+    config = trainer_config(data_dir)
+    tester = eval_tester(config, "cuda", model_dir, TRAIN_BATCH)
+    with tempfile.TemporaryDirectory() as out:
+        # Warm-up: the caption cache, cuDNN's plans, the writer's imports.
+        tester.generate(out, sampling_nums=TRAIN_BATCH, seed=1,
+                        compute_r_precision=True)
+        ips, launches = {}, None
+        for pngs in (False, True):
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tester.generate(os.path.join(out, str(pngs)),
+                            sampling_nums=EVAL_TIMED_IMAGES, seed=2,
+                            compute_r_precision=True, saving_images=pngs)
+            torch.cuda.synchronize()
+            ips[pngs] = EVAL_TIMED_IMAGES / (time.perf_counter() - t0)
+            if not pngs:
+                launches = read_counts()
+    batches = EVAL_TIMED_IMAGES // TRAIN_BATCH
+    per_batch = launches_of(affine_mask_relu=14)
+    if launches != {k: batches * v for k, v in per_batch.items()}:
+        fail(f"the sweep launched {launches} in {batches} batches")
+
+    rng = np.random.default_rng([3])
+    batch = next(tester._batches(TRAIN_BATCH, rng))
+    z = tester.noise_fn(3)(0, TRAIN_BATCH)
+    images = tester.sample_step(batch["caps"], batch["cap_lens"],
+                                batch["attrs"], batch["attr_lens"], z)[-1]
+
+    def sweep_batch():
+        imgs = tester.sample_step(batch["caps"], batch["cap_lens"],
+                                  batch["attrs"], batch["attr_lens"], z)
+        tester._r_precision_batch(batch, imgs[-1], R_VAL, rng)
+
+    batch_ms = TRAIN_BATCH / ips[False] * 1e3
+    saved = read_counts()
+    profile = profile_steps(sweep_batch, 3, batch_ms)
+    set_counts(saved)
+    extractor = FIDExtractor(batch_size=TRAIN_BATCH, device="cuda")
+    fid_ms = time_host(lambda: extractor.features_device(images))
+    scorer = InceptionScorer(num_classes=config.TRAIN.CLASS_NUM + 1,
+                             batch_size=TRAIN_BATCH, device="cuda")
+    is_ms = time_host(lambda: scorer.probs_device(images))
+    model = inception_finetune.build_is_model(config, "cuda")
+    step, init_opt = inception_finetune.make_finetune_step(config, model)
+    opt = init_opt(model)
+    ft_batch = synthetic_batch(config, TRAIN_BATCH, seed=SEED)
+    ft_dev = {k: torch.from_numpy(ft_batch[k]).cuda()
+              for k in (f"img{config.imsizes[-1]}", "class_ids")}
+    ft_ms = time_host(lambda: step(opt, ft_dev), reps=10)
+    result = dict(
+        config="cfg/bird.yml + RUNTIME.PALLAS_AFFINE=true, the trainer's "
+               "epoch-1 weights, demo corpus test split",
+        batch=TRAIN_BATCH, dtype="bfloat16", images=EVAL_TIMED_IMAGES,
+        sweep_images_per_s=ips[False], sweep_images_per_s_with_pngs=ips[True],
+        sweep_batch_ms=batch_ms, launches_per_batch=per_batch,
+        fid_features_images_per_s=TRAIN_BATCH / fid_ms * 1e3,
+        is_probs_images_per_s=TRAIN_BATCH / is_ms * 1e3,
+        finetune_step_ms=ft_ms,
+        sweep_batch_device_busy_ms=profile["device_busy_ms_per_step"],
+        sweep_batch_idle_share=profile["idle_share_vs_untraced_step"],
+        sweep_batch_device_ops=profile["device_ops_per_step"],
+        top_device_ops=profile["top_device_ops"])
+    log(f"phase 16 times ok: sweep {ips[False]} images/s ({ips[True]} with "
+        f"PNGs), B={TRAIN_BATCH} bf16, kernel 1 launched 14 times per batch;"
+        f" device busy {profile['device_busy_ms_per_step']} ms of a "
+        f"{batch_ms} ms batch; FID features {result['fid_features_images_per_s']}"
+        f" images/s, IS probabilities {result['is_probs_images_per_s']} "
+        f"images/s, fine-tune step {ft_ms} ms")
+    return result
+
+
+def phase_eval(tmp):
+    """(16) evaluation, on phase 14's demo corpus and trainer run."""
+    data_dir = os.path.join(tmp, "data")
+    model_dir = os.path.join(tmp, "run", "Model")
+    clis_dir = os.path.join(tmp, "eval")
+    os.makedirs(clis_dir, exist_ok=True)
+    parity = phase_eval_parity(data_dir, model_dir)
+    times = phase_eval_times(data_dir, model_dir)
+    clis = phase_eval_clis(clis_dir, data_dir, model_dir)
+    overlap = phase_eval_overlap(clis_dir, data_dir)
+    return dict(parity=parity, times=times, clis=clis, overlap=overlap)
+
+
 def damsm_gaps(sides, lr, b1, select):
     """Gaps between two DAMSM steps from the same start (``sides``: two
     (models, optimizers) pairs, the reference first), over the parameters
@@ -1419,9 +1880,9 @@ def damsm_gaps(sides, lr, b1, select):
 
 
 CUDNN_KINDS = ("conv_forward", "conv_dgrad", "conv_wgrad", "batch_norm")
-# The kinds turned off together, one run each (the conv's two backward
-# passes also together).
-CUDNN_OFF = (("conv_forward",), ("conv_dgrad",), ("conv_wgrad",),
+# The kinds turned off together, one run each: none, each alone, and the
+# conv's two backward passes together.
+CUDNN_OFF = ((), ("conv_forward",), ("conv_dgrad",), ("conv_wgrad",),
              ("conv_dgrad", "conv_wgrad"), ("batch_norm",))
 
 
@@ -1429,11 +1890,10 @@ def cudnn_per_kind(on):
     """A context in which the DAMSM encoders' convs (``layers.Conv2d``: the
     forward, the data gradient and the weight gradient apart) and batch
     norms (``inception.BasicConv2d``) take cuDNN or not, as ``on`` (kind ->
-    bool, CUDNN_KINDS) says; TF32 off throughout. A conv forward without
-    cuDNN gives its output the input's memory format (channels_last), as
-    cuDNN's does, so that the later operations run as they would. A
-    diagnostic: it says which kind of operation moves the trunk's
-    gradients."""
+    bool, CUDNN_KINDS) says; TF32 off throughout. A conv's output takes
+    its input's memory format; the stem's input (from the resize) is NCHW,
+    so the trunk runs in NCHW here. A diagnostic: it says whether a kind
+    of cuDNN operation moves the trunk's gradients."""
     import contextlib
     from unittest import mock
 
@@ -1492,16 +1952,21 @@ def cudnn_per_kind(on):
 
 
 def damsm_step_run(config, batch, device, cudnn=True, float64=False,
-                   **cudnn_flags):
+                   channels_last_pool=False):
     """One DAMSM step from the seed's weights, dropout 0: (models,
     optimizers, metrics). ``cudnn``: on or off for the whole step, or a
     CUDNN_KINDS -> bool dict (``cudnn_per_kind``); ``float64``: the
-    encoders in float64 (the yardstick); ``cudnn_flags``: more of
-    ``torch.backends.cudnn.flags``'s arguments (TF32 is off)."""
+    encoders in float64 (the yardstick); ``channels_last_pool``: the
+    Inception's padded average pools in channels_last memory (PyTorch's
+    CUDA backward of that pool is wrong; ``inception.avg_pool3_s1_p1``
+    computes it in NCHW). TF32 is off."""
     import contextlib
+    from unittest import mock
 
     import torch
+    import torch.nn.functional as F
 
+    from eegan_tpu_torch.models import inception
     from eegan_tpu_torch.models.factory import (
         build_models,
         randomize_,
@@ -1520,8 +1985,12 @@ def damsm_step_run(config, batch, device, cudnn=True, float64=False,
     zero_counts()
     context = (cudnn_per_kind(cudnn) if isinstance(cudnn, dict)
                else contextlib.nullcontext())
-    with torch.backends.cudnn.flags(enabled=bool(cudnn), allow_tf32=False,
-                                    **cudnn_flags), context:
+    pool = (mock.patch.object(inception, "avg_pool3_s1_p1", lambda x:
+                              F.avg_pool2d(x, 3, 1, 1,
+                                           count_include_pad=False))
+            if channels_last_pool else contextlib.nullcontext())
+    with torch.backends.cudnn.flags(enabled=bool(cudnn),
+                                    allow_tf32=False), context, pool:
         metrics = {k: float(v) for k, v in step(opts, batch).items()}
     if read_counts() != launches_of():
         fail(f"the DAMSM step on {device} launched {read_counts()}")
@@ -1532,25 +2001,23 @@ def phase_damsm_parity():
     """(15) one float32 DAMSM pretraining step on cuda (TF32 off) against
     the same step on the CPU, full width, B=8, dropout 0 (the two devices
     draw other masks), the step launching no kernel (the plain words loss,
-    as in JAX). Metrics within 1e-3 relative. The text encoder and the
-    image encoder's heads (``emb_*``, which the losses' gradient reaches
-    first): the gradients each Adam took (from its moments) within 1e-3
-    relative L2 and 5e-2 at the worst tensor, parameters within PERF.md
-    §2's bar for an Adam step (2·ENCODER_LR, at most 1% of the entries
-    beyond ENCODER_LR/100); the text gradient's norm at most RNN_GRAD_CLIP
-    on both devices; and the same step on cuda with cuDNN off holds the
-    whole image encoder to those bars. The Inception trunk with cuDNN is
-    held against the same step in float64 on the CPU: the relative L2
-    distance of its gradients from float64's, over the trunk and at the
-    worst tensor, for the CPU's float32 step, cuda's with cuDNN (also
-    deterministic, benchmarking, and with fp32_precision "ieee" where this
-    torch has it), cuda's without, and cuda's with the
-    convs and batch norms in ``cudnn_per_kind`` and cuDNN off for one kind
-    of operation at a time (CUDNN_OFF); the last two within twice the
-    CPU's distance. And the distance of four of the trunk's convs' float32
+    as in JAX). Metrics within 1e-3 relative. The text encoder, the image
+    encoder's heads (``emb_*``) and its Inception trunk (its convs on
+    ``layers.TwiceDifferentiableConv``, with cuDNN): the gradients each
+    Adam took (from its moments) within 1e-3 relative L2 and 5e-2 at the
+    worst tensor, parameters within PERF.md §2's bar for an Adam step
+    (2·ENCODER_LR, at most 1% of the entries beyond ENCODER_LR/100); the
+    text gradient's norm at most RNN_GRAD_CLIP on both devices; and the
+    same step on cuda with cuDNN off holds the whole image encoder to
+    those bars. The trunk is also held against the same step in float64
+    on the CPU: the relative L2 distance of its gradients from float64's,
+    over the trunk and at the worst tensor, within twice the CPU float32
+    step's for cuda's step with cuDNN, without it, and with the convs and
+    batch norms in ``cudnn_per_kind`` (cuDNN on for every kind, and off
+    for one kind at a time, CUDNN_OFF). Reported, not held: the trunk's
+    convs on PyTorch's own conv autograd with cuDNN (the route that
+    strays), and the distance of four of the trunk's convs' float32
     passes from float64 (``conv_pass_errors``)."""
-    import inspect
-
     import torch
 
     from eegan_tpu_torch.data.synthetic import synthetic_batch
@@ -1562,26 +2029,20 @@ def phase_damsm_parity():
     b1 = 0.5  # the DAMSM Adam's betas are (0.5, 0.999)
     batch = synthetic_batch(config, DAMSM_PARITY_BATCH, seed=SEED,
                             n_words=N_WORDS)
-    runs = {"cpu": ("cpu", True, False, {}),
-            "cpu_float64": ("cpu", True, True, {}),
-            "cuda": ("cuda", True, False, {}),
-            "cuda_no_cudnn": ("cuda", False, False, {}),
-            "cuda_cudnn_deterministic": ("cuda", True, False,
-                                         dict(deterministic=True)),
-            "cuda_cudnn_benchmark": ("cuda", True, False,
-                                     dict(benchmark=True))}
-    if "fp32_precision" in inspect.signature(
-            torch.backends.cudnn.flags).parameters:
-        runs["cuda_fp32_precision_ieee"] = ("cuda", True, False,
-                                            dict(fp32_precision="ieee"))
-    per_kind = [f"cuda_cudnn_but_{'_'.join(off)}" for off in CUDNN_OFF]
+    runs = {"cpu": ("cpu", True, False, False),
+            "cpu_float64": ("cpu", True, True, False),
+            "cuda": ("cuda", True, False, False),
+            "cuda_no_cudnn": ("cuda", False, False, False),
+            "cuda_channels_last_pool": ("cuda", True, False, True)}
+    per_kind = [f"cuda_cudnn_but_{'_'.join(off)}" if off
+                else "cuda_cudnn_every_kind" for off in CUDNN_OFF]
     for side, off in zip(per_kind, CUDNN_OFF):
         runs[side] = ("cuda", {k: k not in off for k in CUDNN_KINDS}, False,
-                      {})
+                      False)
     sides, metrics = {}, {}
-    for side, (device, cudnn, float64, flags) in runs.items():
+    for side, (device, cudnn, float64, cl_pool) in runs.items():
         models, opts, metrics[side] = damsm_step_run(
-            config, batch, device, cudnn, float64, **flags)
+            config, batch, device, cudnn, float64, cl_pool)
         sides[side] = (models, opts)
     rel = {side: {k: abs(m[k] - v) / abs(v)
                   for k, v in metrics["cpu"].items()}
@@ -1592,29 +2053,23 @@ def phase_damsm_parity():
 
     heads = lambda enc, k: enc == "image_encoder" and k.startswith("emb_")
     trunk = lambda enc, k: enc == "image_encoder" and not heads(enc, k)
-    groups = (("cuda", "text_encoder",
-               lambda enc, k: enc == "text_encoder", True),
-              ("cuda", "image_heads", heads, True),
-              ("cuda", "image_trunk", trunk, False),
+    groups = (("cuda", "text_encoder", lambda enc, k: enc == "text_encoder"),
+              ("cuda", "image_heads", heads),
+              ("cuda", "image_trunk", trunk),
               ("cuda_no_cudnn", "image_encoder",
-               lambda enc, k: enc == "image_encoder", True))
+               lambda enc, k: enc == "image_encoder"))
     gaps = {}
-    for side, group, select, strict in groups:
+    for side, group, select in groups:
         g = damsm_gaps((sides["cpu"], sides[side]), lr, b1, select)
         gaps[f"{side}/{group}"] = g
-        if strict:
-            bad = (g["grad_rel_l2"] > 1e-3
-                   or g["grad_rel_l2_worst_tensor"] > 5e-2
-                   or g["param_share_beyond_lr_100"] > 0.01)
-        else:
-            bad = g["grad_rel_l2"] > 1e-1
-        if bad or g["param_max_abs_err"] > 2 * lr + 1e-6:
+        if (g["grad_rel_l2"] > 1e-3 or g["grad_rel_l2_worst_tensor"] > 5e-2
+                or g["param_share_beyond_lr_100"] > 0.01
+                or g["param_max_abs_err"] > 2 * lr + 1e-6):
             fail(f"DAMSM step {side} vs cpu, {group}: {g}")
-    # The trunk's gradients against float64's: the native conv autograd
-    # on cuDNN puts them hundreds of times farther from float64 than the
-    # CPU's float32 step (ROADMAP Queue 3). Without cuDNN, and with cuDNN's
-    # passes called from cudnn_per_kind's autograd Function (whichever
-    # kind it turns off), they lie within twice the CPU's distance.
+    # The trunk's gradients against float64's. With the padded average
+    # pools in channels_last memory they lie hundreds of times farther from
+    # float64 than the CPU's float32 step: PyTorch's CUDA backward of that
+    # pool is wrong (``pool_backward_errors``).
     to_float64 = {}
     for side in runs:
         if side != "cpu_float64":
@@ -1622,12 +2077,17 @@ def phase_damsm_parity():
                            trunk)
             to_float64[side] = {k: g[k] for k in (
                 "grad_rel_l2", "grad_rel_l2_worst_tensor")}
-    for side in ("cuda_no_cudnn", *per_kind):
+    for side in ("cuda", "cuda_no_cudnn", *per_kind):
         if (to_float64[side]["grad_rel_l2"]
                 > 2 * to_float64["cpu"]["grad_rel_l2"] + 1e-6):
             fail(f"DAMSM trunk on {side}: {to_float64[side]} from float64, "
                  f"more than twice the CPU's {to_float64['cpu']}")
     conv_err = conv_pass_errors(sides["cpu_float64"][0].image_encoder)
+    pool_err = pool_backward_errors()
+    if any(v > 1e-6 for k, v in pool_err.items()
+           if k.startswith("avg_pool3_s1_p1")):
+        fail(f"the Inception's average pool on cuda: {pool_err} from "
+             "float64")
     norms = {}
     for side in ("cpu", "cuda"):
         models, opts = sides[side]
@@ -1639,10 +2099,43 @@ def phase_damsm_parity():
     log(f"phase 15 ok: float32 DAMSM step (bird.yml, B={DAMSM_PARITY_BATCH})"
         f" on cuda against the CPU step: metric rel err {rel}; text "
         f"gradient norms {norms}; gaps {gaps}; the trunk's gradients from "
-        f"float64's {to_float64}; conv passes from float64's {conv_err}")
+        f"float64's {to_float64}; conv passes from float64's {conv_err}; "
+        f"pool backward from float64's {pool_err}")
     return dict(metric_rel_err=rel, metrics=metrics["cuda"],
                 text_grad_norm=norms, trunk_to_float64=to_float64,
-                conv_passes_to_float64=conv_err, **gaps)
+                conv_passes_to_float64=conv_err,
+                pool_backward_to_float64=pool_err, **gaps)
+
+
+def pool_backward_errors():
+    """Relative L2 distance from float64 of the input gradient of the
+    Inception's 3x3 stride-1 average pool (padding 1, the padded cells not
+    counted) on cuda in float32, at the shapes of Mixed_5b, Mixed_6b and
+    Mixed_7b (B=8), input in channels_last: ``inception.avg_pool3_s1_p1``
+    (held to 1e-6 by the caller) and PyTorch's ``avg_pool2d`` on the
+    channels_last tensor itself (reported: wrong in torch 2.11)."""
+    import torch
+    import torch.nn.functional as F
+
+    from eegan_tpu_torch.models.inception import avg_pool3_s1_p1
+
+    plain = lambda x: F.avg_pool2d(x, 3, 1, 1, count_include_pad=False)
+    gen = torch.Generator().manual_seed(SEED + 302)
+    out = {}
+    for shape in ((8, 192, 35, 35), (8, 768, 17, 17), (8, 1280, 8, 8)):
+        x = torch.randn(shape, generator=gen, dtype=torch.float64)
+        dy = torch.randn(shape, generator=gen, dtype=torch.float64)
+        for name, pool in (("avg_pool3_s1_p1", avg_pool3_s1_p1),
+                           ("avg_pool2d_channels_last", plain)):
+            grads = []
+            for dev, dt in (("cpu", torch.float64), ("cuda", torch.float32)):
+                xx = x.to(dev, dt).contiguous(
+                    memory_format=torch.channels_last).requires_grad_(True)
+                pool(xx).backward(dy.to(dev, dt))
+                grads.append(xx.grad.cpu().double())
+            out[f"{name}/{shape}"] = float(
+                (grads[1] - grads[0]).norm() / grads[0].norm())
+    return out
 
 
 def conv_pass_errors(encoder64):
@@ -1744,6 +2237,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         trainer = phase_trainer(os.path.join(tmp, "trainer"))
         clis = phase_clis(os.path.join(tmp, "clis"))
+        evaluation = phase_eval(os.path.join(tmp, "trainer"))
     damsm_parity = phase_damsm_parity()
 
     card = {"gpu": name, "nvidia_smi": smi}
@@ -1760,10 +2254,16 @@ def main() -> None:
         "launches_per_step": bf16_train["launches_per_step"],
         "float32_parity": parity, **card}}
     trainer_line = {"trainer": {**trainer, **card}}
+    eval_line = {"evaluation": {
+        **{k: v for k, v in evaluation["times"].items()
+           if k != "top_device_ops"},
+        "overlap": evaluation["overlap"], "clis": evaluation["clis"],
+        "parity": evaluation["parity"], **card}}
     results = {"affine_launches": rows, "affine_train_launches": fwd_rows,
                "affine_backward_launches": bwd_rows,
                "damsm": damsm_rows, **step_line, **train_line,
                **trainer_line, "clis": clis, "damsm_step_parity": damsm_parity,
+               "evaluation": evaluation,
                "breakdown": breakdown, "train_breakdown": train_breakdown,
                "bf16_train_metrics": bf16_train["metrics"],
                "checks": {"affine_max_abs_err": {"float32": err_f32,
@@ -1782,6 +2282,7 @@ def main() -> None:
     log(json.dumps({k: v for k, v in train_line["train_step"].items()
                     if k != "float32_parity"}))
     log(json.dumps(trainer_line))
+    log(json.dumps(eval_line))
     for key, value in (("breakdown", breakdown),
                        ("train_breakdown", train_breakdown)):
         log(json.dumps({key: {k: v for k, v in value.items()
@@ -1846,6 +2347,8 @@ def main() -> None:
         row["launches_trainer_save_images"] = \
             trainer["launches_save_images"][row["name"]]
         row["launches_trainer_epoch"] = trainer["launches_epoch"][row["name"]]
+        row["launches_eval_batch"] = \
+            evaluation["times"]["launches_per_batch"][row["name"]]
     log(json.dumps(kernels))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -10,6 +10,9 @@ Layout:
     data          caption prep, attribute parsing, the CUB datasets and
                   transforms, the native resize, the batching pipeline and
                   device prefetch, synthetic data, the demo corpus
+    evaluation    FID, Inception Score and its classifier's fine-tune, the
+                  checkpoint sweep with R-precision, evaluation overlapped
+                  with training
     models        generator, AttrEnhance, discriminators, text and image
                   encoders as torch nn.Modules
     ops           hand-written CUDA kernels with their plain PyTorch versions
@@ -19,6 +22,8 @@ Layout:
     sample        the sampling CLI (``python -m eegan_tpu_torch.sample``)
     train         the training CLI (``python -m eegan_tpu_torch.train``)
     pretrain_damsm  the DAMSM pretraining CLI
+    test, fid_score, inception_score, finetune_inception
+                  the evaluation CLIs
 
 Tensors run NCHW in ``torch.channels_last`` memory format, so the kernels see
 the NHWC byte order of the JAX package. Entry points run on ``cuda`` unless

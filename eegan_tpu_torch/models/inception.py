@@ -25,13 +25,31 @@ import torch.nn.functional as F
 from eegan_tpu_torch.models.layers import Conv2d, Linear
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train mode moves the running variance
+    towards the biased batch variance, as flax's ``BatchNorm`` (the JAX
+    package's Inception) does; torch's own takes the unbiased one. Eval
+    mode, and the normalisation in train mode, are torch's."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
+
+
 class BasicConv2d(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, kernel_size, stride=1,
                  padding=0, compute_dtype=torch.float32):
         super().__init__()
         self.conv = Conv2d(in_ch, out_ch, kernel_size, stride=stride,
                            padding=padding, compute_dtype=compute_dtype)
-        self.bn = nn.BatchNorm2d(out_ch, eps=0.001)
+        self.bn = BatchNorm2d(out_ch, eps=0.001)
 
     def forward(self, x):
         return F.relu(self.bn(self.conv(x).to(self.bn.weight.dtype)))
@@ -42,8 +60,18 @@ def max_pool3_s2(x):
 
 
 def avg_pool3_s1_p1(x):
-    return F.avg_pool2d(x, kernel_size=3, stride=1, padding=1,
-                        count_include_pad=False)
+    """3x3 average pool, stride 1, padding 1, the padded cells not counted;
+    computed in the NCHW layout and returned in x's. In channels_last
+    memory, PyTorch's CUDA backward of a padded ``avg_pool2d`` gets the
+    input gradient about 100% wrong (torch 2.11, PERF.md §6), which put
+    the trunk's gradients (the DAMSM encoder's, and the image gradient of
+    the G phase) 2.7% off on the card."""
+    fmt = (torch.channels_last
+           if x.is_contiguous(memory_format=torch.channels_last)
+           else torch.contiguous_format)
+    y = F.avg_pool2d(x.contiguous(), kernel_size=3, stride=1, padding=1,
+                     count_include_pad=False)
+    return y.contiguous(memory_format=fmt)
 
 
 class InceptionA(nn.Module):

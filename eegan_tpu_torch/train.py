@@ -7,10 +7,12 @@ Keeps ``train.py``'s flags (reference `train.py:37-56` plus --dtype,
 --synthetic, --max_epochs, --max_iters, --profile_steps) and adds --device
 (``cuda`` by default; the CPU only with ``--device cpu``). --gpu is
 accepted and ignored, as in the JAX CLI. One device: --mesh accepts only a
-mesh of one device, and --mesh, --distributed and --eval_overlap beyond
-that raise ``NotImplementedError`` (ROADMAP.md Queue 1: item 5 ports the
-meshes and multi-host runs, item 4 the evaluation). --profile_steps writes
-a ``torch.profiler`` trace to <output_dir>/profile/trace.json.
+mesh of one device, and --mesh beyond that and --distributed raise
+``NotImplementedError`` (ROADMAP.md Queue 1, item 4 ports the meshes and
+multi-host runs). --profile_steps writes a ``torch.profiler`` trace to
+<output_dir>/profile/trace.json. --eval_overlap scores each generator
+snapshot (FID against --fid_stats, R-precision) on a background thread
+while training goes on (``evaluation/async_eval.py``).
 """
 
 from __future__ import annotations
@@ -58,7 +60,13 @@ def parse_args(argv=None):
     parser.add_argument("--profile_steps", type=int, default=0,
                         help="capture a torch.profiler trace of N steps")
     parser.add_argument("--eval_overlap", action="store_true",
-                        help="not in the port yet")
+                        help="score each generator snapshot (FID/R-precision)"
+                             " on a background thread during training")
+    parser.add_argument("--eval_nums", type=int, default=2048,
+                        help="images per overlapped evaluation")
+    parser.add_argument("--fid_stats", type=str, default="",
+                        help="dataset mu/sigma .npz (or real-image folder)"
+                             " for overlapped FID")
     parser.add_argument("--distributed", action="store_true",
                         help="not in the port yet")
     parser.add_argument("--set", dest="overrides", action="append",
@@ -68,21 +76,17 @@ def parse_args(argv=None):
 
 
 def check_single_device(args) -> None:
-    """Refuse what needs more than one device or the evaluation stack."""
+    """Refuse what needs more than one device."""
     if args.distributed:
         raise NotImplementedError(
             "--distributed (multi-host training) is not ported; see "
-            "ROADMAP.md Queue 1, item 5 (parallel)")
-    if args.eval_overlap:
-        raise NotImplementedError(
-            "--eval_overlap (FID / R-precision during training) is not "
-            "ported; see ROADMAP.md Queue 1, item 4 (evaluation)")
+            "ROADMAP.md Queue 1, item 4 (parallel)")
     if args.mesh:
         sizes = [axis.partition(":")[2] for axis in args.mesh.split(",")]
         if any(size != "1" for size in sizes):
             raise NotImplementedError(
                 f"--mesh {args.mesh}: the port trains on one device; meshes "
-                "are ROADMAP.md Queue 1, item 5 (parallel)")
+                "are ROADMAP.md Queue 1, item 4 (parallel)")
 
 
 def main(argv=None):
@@ -137,6 +141,22 @@ def main(argv=None):
     trainer = Trainer(config, output_dir, dataset=dataset,
                       seed=args.manualSeed, data_workers=workers,
                       device=device)
+    if args.eval_overlap:
+        from eegan_tpu_torch.data.datasets import TextOnlyDataset
+        from eegan_tpu_torch.evaluation.async_eval import (
+            AsyncEvaluator,
+            eval_bundle,
+        )
+        from eegan_tpu_torch.evaluation.tester import Tester
+
+        eval_ds = (dataset if args.synthetic
+                   else TextOnlyDataset(config, split="test"))
+        tester = Tester(config, eval_bundle(trainer.models), trainer.frozen,
+                        eval_ds, batch_size=config.TRAIN.BATCH_SIZE)
+        trainer.async_eval = AsyncEvaluator(
+            tester, writer=trainer.writer,
+            real_stats=args.fid_stats or None, eval_nums=args.eval_nums,
+            compute_r_precision=not args.synthetic)
     try:
         trainer.train(max_epochs=args.max_epochs,
                       max_iters_per_epoch=args.max_iters,

@@ -14,10 +14,13 @@
 * per-epoch image grids of a fixed batch from the EMA generator (when on),
   a caption/attribute text dump, and scalar metrics every UPDATE_INTERVAL
   iterations on the persistent ``state.step`` (reference tags);
-* images/sec and the host's wait on the data pipeline are logged.
+* images/sec and the host's wait on the data pipeline are logged;
+* with ``async_eval`` (``evaluation/async_eval.AsyncEvaluator``), each
+  saved generator snapshot is scored (FID / R-precision) on a background
+  thread while training goes on.
 
-One device: the JAX package's meshes, FSDP and overlapped evaluation are
-not ported (RUNTIME.MESH is ignored; ``train.py`` refuses the flags).
+One device: the JAX package's meshes and FSDP are not ported
+(RUNTIME.MESH is ignored; ``train.py`` refuses the flags).
 """
 
 from __future__ import annotations
@@ -149,7 +152,7 @@ def ema_weights(state: TrainState):
 class Trainer:
     def __init__(self, config: Config, output_dir: str, dataset=None,
                  seed: int = 3407, data_workers: Optional[int] = None,
-                 device="cuda"):
+                 device="cuda", async_eval=None):
         self.device = resolve_device(device)
         self.config = config
         self.output_dir = output_dir
@@ -204,6 +207,8 @@ class Trainer:
         # Host seconds spent waiting for the next batch, and the count.
         self.data_wait_s = 0.0
         self.data_waits = 0
+        # Optional overlapped evaluation of each generator snapshot.
+        self.async_eval = async_eval
 
         self._sample_batch = self._prepare_sampling()
 
@@ -248,9 +253,21 @@ class Trainer:
         if epoch == 1 or (epoch >= t.WARMUP_EPOCHS and epoch % t.GSAVE_INTERVAL == 0):
             self.ckpt.save_generator(epoch, self.state)
             print("Save Gen model.")
+            if self.async_eval is not None:
+                self._submit_eval(epoch)
         if epoch == 1 or (epoch >= t.WARMUP_EPOCHS and epoch % t.DSAVE_INTERVAL == 0):
             self.ckpt.save_state(epoch, self.state)
             print("Save full train state.")
+
+    def _submit_eval(self, epoch: int) -> None:
+        """Hand the snapshot the sweep would see (the EMA weights when on,
+        the live BN stats) to the overlapped evaluation."""
+        st = self.state
+        g = st.g_ema or dict(st.generator.named_parameters())
+        a = st.attr_ema or dict(st.attr_enhance.named_parameters())
+        if not self.async_eval.submit(epoch, g, a,
+                                      dict(st.generator.named_buffers())):
+            print(f"[async-eval] busy — skipped epoch {epoch}")
 
     def _timed(self, batches):
         """``batches``, adding the host's wait for each to data_wait_s."""
@@ -336,5 +353,7 @@ class Trainer:
             stop_trace(prof, os.path.join(self.output_dir, "profile"))
 
     def close(self):
+        if self.async_eval is not None:
+            self.async_eval.close()
         self.pipeline.close()
         self.writer.close()

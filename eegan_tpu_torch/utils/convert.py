@@ -38,7 +38,7 @@ def load_state_dict(path: str) -> Dict[str, torch.Tensor]:
     return {k.removeprefix("module."): v for k, v in sd.items()}
 
 
-def _load_reference(module: torch.nn.Module, sd: Dict[str, torch.Tensor],
+def load_reference(module: torch.nn.Module, sd: Dict[str, torch.Tensor],
                     what: str) -> None:
     """A reference state dict into ``module``. Keys the module lacks are
     ignored, as the JAX package's converter ignores them; a missing key
@@ -63,10 +63,10 @@ def load_damsm_encoders(text_pth: str, frozen):
     is missing the image encoder keeps its weights, with a warning, as in
     the JAX package.
     """
-    _load_reference(frozen.text_encoder, load_state_dict(text_pth), text_pth)
+    load_reference(frozen.text_encoder, load_state_dict(text_pth), text_pth)
     img_pth = text_pth.replace("text_encoder", "image_encoder")
     if os.path.isfile(img_pth):
-        _load_reference(frozen.image_encoder, load_state_dict(img_pth),
+        load_reference(frozen.image_encoder, load_state_dict(img_pth),
                         img_pth)
     else:
         print(f"WARNING: {img_pth} not found — image encoder stays random")

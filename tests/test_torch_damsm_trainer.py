@@ -342,7 +342,7 @@ def test_cli_needs_a_gpu_unless_told_cpu(module):
 
 
 @pytest.mark.parametrize("flags", [["--mesh", "data:2"], ["--distributed"],
-                                   ["--eval_overlap"]])
+                                   ["--mesh", "data:1,model:2"]])
 def test_train_cli_refuses_what_is_not_ported(flags):
     from eegan_tpu_torch.train import main
 

@@ -246,3 +246,27 @@ def test_twice_differentiable_conv_matches_conv2d(k, stride, pad):
     for name, g, r in zip(("y", "dx", "dw", "db", "ddw"), got32, want):
         assert rel(g, r.detach()) <= 1e-5, name
     assert rel(run(twice, torch.bfloat16)[-1], want[-1]) <= 1e-2
+
+
+@pytest.mark.parametrize("fmt", [torch.channels_last, torch.contiguous_format])
+def test_inception_avg_pool_matches_avg_pool2d(fmt):
+    """``inception.avg_pool3_s1_p1`` computes the pool in the NCHW layout
+    (PyTorch's CUDA backward of a padded channels_last ``avg_pool2d`` is
+    wrong): in float64 on the CPU its output and input gradient equal
+    ``F.avg_pool2d``'s on the tensor as given within 1e-10, and the output
+    keeps the input's layout."""
+    from eegan_tpu_torch.models.inception import avg_pool3_s1_p1
+
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((2, 24, 9, 7), generator=gen, dtype=torch.float64)
+    dy = torch.randn(x.shape, generator=gen, dtype=torch.float64)
+    outs = []
+    for pool in (avg_pool3_s1_p1,
+                 lambda t: F.avg_pool2d(t, 3, 1, 1, count_include_pad=False)):
+        xx = x.contiguous(memory_format=fmt).requires_grad_(True)
+        y = pool(xx)
+        y.backward(dy)
+        outs.append((y.detach(), xx.grad))
+        assert y.is_contiguous(memory_format=fmt)
+    for got, want in zip(*outs):
+        assert float((got - want).norm()) <= 1e-10 * float(want.norm())
