@@ -39,8 +39,9 @@ sampling phases:
    (B=32, float32 and bf16) and at C = 8, 16, 24, 37, 40 and 512 with every
    dtype pair: all six gradients, and bitwise the same in two launches;
 9. the DAMSM forward, dR and dW kernels against the plain version and its
-   autograd at (Bi, Bt, S, L, D) = (32, 32, 289, 20, 256), (5, 3, 37, 7, 64)
-   and (4, 4, 289, 20, 256) with a class mask; dW exactly 0 at padded words;
+   autograd at (Bi, Bt, S, L, D) = (32, 32, 289, 20, 256), (5, 3, 37, 7, 64),
+   (4, 4, 289, 20, 256) with a class mask, and (16, 32, 289, 20, 256) (a
+   rank's rows under a two-rank mesh); dW exactly 0 at padded words;
    all three also at shapes that stress their per-pair split (an odd Bi,
    Bt = 1, L = 1, every text at full length, one-word texts beside full
    ones, L = 32, a text with no valid word), and bitwise the same in two
@@ -105,6 +106,25 @@ The evaluation slice, run after phase 15's CLIs in phase 14's directory
    ``sample --from_dataset --model_dir``); and a Trainer of two epochs
    whose epoch-1 snapshot an ``AsyncEvaluator`` scores (FID,
    R-precision) while epoch 2 trains.
+
+Training at scale, run last (cfg/bird.yml, both kernel families on):
+
+17. REMAT: the float32 step (TF32 off, B=4) with RUNTIME.REMAT, REMAT_D
+   and REMAT_IMAGE_ENCODER on against the same step with them off, from
+   the same weights, batch and noise: metrics within 1e-6 + 1e-3
+   relative, each optimizer's Adam moments within 1e-3 relative L2, the
+   BN running stats within 1e-6 and moved once (num_batches_tracked 1),
+   and kernel 1 launched 14 + 2 x 7 times (again in the backward for each
+   recomputed SAGB block); bf16 step ms and peak memory at B=32 with REMAT
+   off, on, on for blocks 4,5,6 and the Cum blocks only, and
+   REMAT_IMAGE_ENCODER alone; and at B=192 with REMAT on;
+18. the data-parallel path: two gloo ranks on the one card (float32, TF32
+   off, global B=8, 4 per rank) take one mesh step, held against the
+   single-process step at B=8 on the card (metrics, Adam moments within
+   1e-3, parameters and BN running stats at phase 10's bars) with the
+   same kernel launches per rank; then ``python -m eegan_tpu_torch.train
+   --distributed`` as one NCCL rank (EEGAN_NUM_PROCESSES=1) for a few
+   iterations on phase 14's corpus, with its images/s.
 
 The last lines are one JSON ``kernels`` line, the card's name and power
 limit as nvidia-smi prints them, and ``{"ok": true, "device": {...}}``;
@@ -638,8 +658,10 @@ FP32_FLOP_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
 TRAIN_BATCH = 32  # cfg/bird.yml TRAIN.BATCH_SIZE
 PARITY_BATCH = 4  # the float32 cuda-vs-CPU step
 BF16_STEPS = 3
+# (Bi, Bt, S, L, D); the last is a rank's rows of the words loss under a
+# two-rank mesh at B=32 (phase 18's path at cfg/bird.yml's batch).
 DAMSM_SHAPES = ((32, 32, 289, 20, 256), (5, 3, 37, 7, 64),
-                (4, 4, 289, 20, 256))  # (Bi, Bt, S, L, D)
+                (4, 4, 289, 20, 256), (16, 32, 289, 20, 256))
 # The forward, dR and dW at shapes that stress their per-pair split (an odd
 # Bi, one text, one word, every text at full length, one-word texts beside
 # full ones, L = 32, a text with no valid word), with the lengths ("full",
@@ -802,7 +824,7 @@ def phase_damsm_kernels():
         worst["sims"] = max(worst["sims"], float(err.max()))
 
     for (Bi, Bt, S, L, D), use_cls in zip(DAMSM_SHAPES,
-                                          (False, False, True)):
+                                          (False, False, True, False)):
         regions, words, lens, cls = damsm_operands(Bi, Bt, S, L, D, gen)
         what = f"damsm {(Bi, Bt, S, L, D)}"
         got = words_similarity_forward(regions, words, lens)
@@ -901,6 +923,64 @@ def train_inputs(config, batch_size, seed):
     return batch, noise
 
 
+def metric_errors(got, want, what: str):
+    """|got - want| of each metric; fails beyond 1e-6 + 1e-3 relative."""
+    if set(got) != set(want):
+        fail(f"{what}: metrics {sorted(got)} vs {sorted(want)}")
+    err = {}
+    for k in want:
+        g, w = float(got[k]), float(want[k])
+        err[k] = abs(g - w)
+        if not err[k] <= 1e-6 + 1e-3 * abs(w):
+            fail(f"{what}: metric {k} {g} vs {w}; all "
+                 f"{ {m: (float(got[m]), float(v)) for m, v in want.items()} }")
+    return err
+
+
+def adam_param_errors(config, got, want):
+    """Parameters after one train step (module name -> state dict) against
+    another run's. Adam's first update moves an entry by about lr *
+    sign(g), so an entry whose gradient is near 0 may land up to 2 lr
+    away. A discriminator takes a second Adam update (MAGP), whose size is
+    at most lr * sqrt(1 + B2) (v-hat holds at least g2^2 / (1 + B2)), so
+    its entries may land up to 2 lr (1 + sqrt(1 + B2)) away. Besides, at
+    most 1% of the entries may differ by more than lr / 100. Running stats
+    (a forward only) within 1e-4. Returns (errors by module, modules out
+    of bounds)."""
+    param_err, bad = {}, []
+    tr = config.TRAIN
+    for name in ("generator", "attr_enhance", "disc_0", "disc_1", "disc_2"):
+        if name.startswith("disc"):
+            lr = tr.DISCRIMINATOR_LR
+            bar = 2 * lr * (1 + math.sqrt(1 + tr.B2)) + 1e-6
+        else:
+            lr = tr.GENERATOR_LR
+            bar = 2 * lr + 1e-6
+        got_sd, want_sd = got[name], want[name]
+        n = n_off = 0
+        worst = worst_stat = 0.0
+        worst_key = None
+        for k, want_v in want_sd.items():
+            if k.endswith("num_batches_tracked"):
+                if int(got_sd[k]) != int(want_v):
+                    bad.append(f"{name}.{k}")
+                continue
+            err = (got_sd[k].cpu().float() - want_v.cpu().float()).abs()
+            if "running_" in k:
+                worst_stat = max(worst_stat, float(err.max()))
+                continue
+            n += err.numel()
+            n_off += int((err > lr / 100).sum())
+            if float(err.max()) > worst:
+                worst, worst_key = float(err.max()), k
+        param_err[name] = dict(max_abs_err=worst, worst=worst_key,
+                               bar=bar, off_lr100=n_off, n=n,
+                               running_stats_max_abs_err=worst_stat)
+        if worst > bar or n_off > 0.01 * n or worst_stat > 1e-4:
+            bad.append(name)
+    return param_err, bad
+
+
 def phase_train_parity():
     """(c) the float32 train step on cuda against the same step on the CPU
     (TF32 off), full width, B=4, same weights, batch and noise; kernel
@@ -941,49 +1021,10 @@ def phase_train_parity():
     if read_counts() != launches:
         fail("the CPU train step launched a CUDA kernel")
 
-    metric_err = {}
-    for k, want in cmetrics.items():
-        got, want = float(metrics[k]), float(want)
-        metric_err[k] = abs(got - want)
-        if not metric_err[k] <= 1e-6 + 1e-3 * abs(want):
-            fail(f"train step metric {k}: cuda {got} vs cpu {want}; all "
-                 f"{ {m: (float(metrics[m]), float(v)) for m, v in cmetrics.items()} }")
-    # Parameters after the step. Adam's first update moves an entry by
-    # about lr * sign(g), so an entry whose gradient is near 0 may land up
-    # to 2 lr away. A discriminator takes a second Adam update (MAGP), whose
-    # size is at most lr * sqrt(1 + B2) (v-hat holds at least g2^2 / (1 + B2)),
-    # so its entries may land up to 2 lr (1 + sqrt(1 + B2)) away. Besides,
-    # at most 1% of the entries may differ by more than lr / 100. Running
-    # stats (a forward only) within 1e-4.
-    param_err, bad = {}, []
-    tr = config.TRAIN
-    for name in ("generator", "attr_enhance", "disc_0", "disc_1", "disc_2"):
-        if name.startswith("disc"):
-            lr = tr.DISCRIMINATOR_LR
-            bar = 2 * lr * (1 + math.sqrt(1 + tr.B2)) + 1e-6
-        else:
-            lr = tr.GENERATOR_LR
-            bar = 2 * lr + 1e-6
-        got_sd, want_sd = gpu_mods[name].state_dict(), \
-            cpu_mods[name].state_dict()
-        n = n_off = 0
-        worst = worst_stat = 0.0
-        for k, want in want_sd.items():
-            if k.endswith("num_batches_tracked"):
-                continue
-            err = (got_sd[k].cpu() - want).abs()
-            if "running_" in k:
-                worst_stat = max(worst_stat, float(err.max()))
-                continue
-            n += err.numel()
-            n_off += int((err > lr / 100).sum())
-            if float(err.max()) > worst:
-                worst, worst_key = float(err.max()), k
-        param_err[name] = dict(max_abs_err=worst, worst=worst_key,
-                               bar=bar, off_lr100=n_off, n=n,
-                               running_stats_max_abs_err=worst_stat)
-        if worst > bar or n_off > 0.01 * n or worst_stat > 1e-4:
-            bad.append(name)
+    metric_err = metric_errors(metrics, cmetrics, "train step, cuda vs cpu")
+    param_err, bad = adam_param_errors(
+        config, {k: m.state_dict() for k, m in gpu_mods.items()},
+        {k: m.state_dict() for k, m in cpu_mods.items()})
     if bad:
         fail(f"train step params cuda vs cpu out of bounds in {bad}: "
              f"{param_err}")
@@ -1363,9 +1404,10 @@ def phase_trainer(tmp: str):
     return result
 
 
-def run_cli(args):
+def run_cli(args, env=None):
     proc = subprocess.run([sys.executable, "-m", *args], cwd=ROOT,
-                          capture_output=True, text=True, timeout=600)
+                          capture_output=True, text=True, timeout=600,
+                          env=env)
     if proc.returncode != 0:
         fail(f"{' '.join(args[:1])} exit {proc.returncode}:\n"
              f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
@@ -2188,6 +2230,307 @@ def conv_pass_errors(encoder64):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Training at scale: activation rematerialisation (phase 17) and the
+# data-parallel step (phase 18)
+# ---------------------------------------------------------------------------
+
+REMAT_ON = ("RUNTIME.REMAT=true", "RUNTIME.REMAT_D=true",
+            "RUNTIME.REMAT_IMAGE_ENCODER=true")
+# (name, overrides) of the bf16 settings timed at B=32.
+REMAT_SETTINGS = (
+    ("off", ()),
+    ("remat", ("RUNTIME.REMAT=true",)),
+    ("remat_blocks_4_5_6_cum", ("RUNTIME.REMAT=true",
+                                "RUNTIME.REMAT_BLOCKS=4,5,6,cum")),
+    ("remat_image_encoder", ("RUNTIME.REMAT_IMAGE_ENCODER=true",)))
+LARGE_BATCH = 192
+REMAT_TIMED_STEPS = 5
+SAGB_BLOCKS = 7
+MESH_RANKS = 2
+MESH_BATCH = 8  # global; 4 per rank
+NCCL_ITERS = 8
+
+
+def moment_gaps(got, want):
+    """Relative L2 distance of each optimizer's first and second Adam
+    moments, over all its parameters (``optimizer_moments`` dicts)."""
+    import torch
+
+    out = {}
+    for opt in sorted({k[0] for k in want}):
+        for key in ("exp_avg", "exp_avg_sq"):
+            ks = sorted(k for k in want if k[0] == opt and k[2] == key)
+            a = torch.cat([got[k].cpu().double().reshape(-1) for k in ks])
+            b = torch.cat([want[k].cpu().double().reshape(-1) for k in ks])
+            out[f"{opt}.{key}"] = float((a - b).norm() / b.norm())
+    return out
+
+
+def timed_step(config, batch_size: int, reps: int = REMAT_TIMED_STEPS):
+    """(step ms, peak MiB) of the train step at ``batch_size`` on the
+    card: random weights, the synthetic batch on the device; the peak
+    is that of the steps after the first (``time_host``'s warm-up and
+    timed steps)."""
+    import torch
+
+    from eegan_tpu_torch.training.state import create_train_state
+    from eegan_tpu_torch.training.steps import make_train_step
+
+    models, _ = train_models(config, "cuda")
+    state, frozen = create_train_state(config, models)
+    step = make_train_step(config, models)
+    batch, noise = train_inputs(config, batch_size, SEED + 2)
+    dev_batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    for k in ("cap_lens", "unpair_cap_lens", "attr_lens"):
+        dev_batch[k] = torch.from_numpy(batch[k])  # host: the packed RNN
+    noise = torch.from_numpy(noise).cuda()
+    holder = [state, None]
+
+    def run():
+        holder[0], holder[1] = step(holder[0], frozen, dev_batch, noise)
+
+    run()  # the optimizers' state exists from here on
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_host(run, reps)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    bad = [k for k, v in holder[1].items() if not math.isfinite(float(v))]
+    if bad:
+        fail(f"train step at B={batch_size}: non-finite metrics {bad}")
+    del models, state, frozen, step, holder, dev_batch
+    torch.cuda.empty_cache()
+    return ms, peak
+
+
+def phase_remat():
+    """(17) REMAT on the card: the float32 step (TF32 off, B=4) with REMAT,
+    REMAT_D and REMAT_IMAGE_ENCODER on against the same step with them off,
+    from the same weights, batch and noise: metrics, Adam moments, BN
+    running stats, and kernel 1 launched again in the backward for every
+    recomputed SAGB block; then bf16 step times and peak memory at B=32
+    for four settings, and at B=192 with REMAT on."""
+    import torch
+
+    from eegan_tpu_torch.config import apply_overrides
+    from eegan_tpu_torch.training.state import create_train_state
+    from eegan_tpu_torch.training.steps import make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runs = {}
+    sds = None
+    batch, noise = train_inputs(bird_config("float32"), PARITY_BATCH, SEED)
+    for name, overrides in (("off", ()), ("on", REMAT_ON)):
+        config = apply_overrides(bird_config("float32"), list(overrides))
+        models, mods = train_models(config, "cuda", sds)
+        if sds is None:
+            sds = {k: {n: v.clone() for n, v in m.state_dict().items()}
+                   for k, m in mods.items()}
+        state, frozen = create_train_state(config, models)
+        step = make_train_step(config, models)
+        zero_counts()
+        state, metrics = step(state, frozen, batch, noise)
+        torch.cuda.synchronize()
+        runs[name] = dict(counts=read_counts(), metrics=metrics,
+                          moments=optimizer_moments(state),
+                          sds={k: m.state_dict() for k, m in mods.items()},
+                          remat=models.generator.remat)
+        del models, state, frozen, step
+    if not runs["on"]["remat"] or runs["off"]["remat"]:
+        fail("phase 17: REMAT did not reach the generator")
+    metric_err = metric_errors(runs["on"]["metrics"], runs["off"]["metrics"],
+                               "REMAT step vs plain step")
+    moments = moment_gaps(runs["on"]["moments"], runs["off"]["moments"])
+    if max(moments.values()) > 1e-3:
+        fail(f"REMAT step Adam moments vs the plain step: {moments}")
+    stats_err = 0.0
+    for name in ("generator",):
+        for k, v in runs["off"]["sds"][name].items():
+            got = runs["on"]["sds"][name][k]
+            if k.endswith("num_batches_tracked"):
+                if int(got) != int(v) or int(v) != 1:
+                    fail(f"REMAT step {k}: {int(got)}, plain {int(v)}")
+            elif "running_" in k:
+                stats_err = max(stats_err, float((got - v).abs().max()))
+    if stats_err > 1e-6:
+        fail(f"REMAT step BN running stats {stats_err} from the plain step")
+    want_on = launches_of(**dict(TRAIN_LAUNCHES, affine_mask_relu=14
+                                 + 2 * SAGB_BLOCKS))
+    if runs["off"]["counts"] != launches_of(**TRAIN_LAUNCHES) \
+            or runs["on"]["counts"] != want_on:
+        fail(f"REMAT step launches {runs['on']['counts']} (expected "
+             f"{want_on}), plain {runs['off']['counts']}")
+    del runs["off"]["sds"], runs["on"]["sds"]
+    torch.cuda.empty_cache()
+    log(f"phase 17 parity ok: float32 REMAT step (bird.yml, B="
+        f"{PARITY_BATCH}) matches the plain step: max metric err "
+        f"{max(metric_err.values())}, moments {moments}, BN stats "
+        f"{stats_err}; launches {runs['on']['counts']}")
+
+    times = {}
+    for name, overrides in REMAT_SETTINGS:
+        config = apply_overrides(bird_config("bfloat16"), list(overrides))
+        ms, peak = timed_step(config, TRAIN_BATCH)
+        times[name] = dict(batch=TRAIN_BATCH, ms=ms,
+                           images_per_s=TRAIN_BATCH / ms * 1e3,
+                           peak_mib=peak, overrides=list(overrides))
+    config = apply_overrides(bird_config("bfloat16"), ["RUNTIME.REMAT=true"])
+    ms, peak = timed_step(config, LARGE_BATCH, reps=3)
+    times["remat_large_batch"] = dict(
+        batch=LARGE_BATCH, ms=ms, images_per_s=LARGE_BATCH / ms * 1e3,
+        peak_mib=peak, overrides=["RUNTIME.REMAT=true"])
+    log(f"phase 17 times ok (bf16): {json.dumps(times)}")
+    return dict(metric_max_abs_err=metric_err, moments=moments,
+                bn_stats_max_abs_err=stats_err,
+                launches=runs["on"]["counts"],
+                launches_plain=runs["off"]["counts"], times=times)
+
+
+def _mesh_rank(rank: int, port: int, in_path: str, out_path: str) -> None:
+    """Rank ``rank`` of phase 18's two gloo ranks on one card."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from eegan_tpu_torch.parallel import distributed
+    from eegan_tpu_torch.parallel.mesh import Mesh
+    from eegan_tpu_torch.training.state import create_train_state
+    from eegan_tpu_torch.training.steps import make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    distributed.initialize(f"127.0.0.1:{port}", MESH_RANKS, rank,
+                           device="cuda", backend="gloo")
+    try:
+        inputs = torch.load(in_path, weights_only=False)
+        config = bird_config("float32")
+        models, mods = train_models(config, "cuda", inputs["weights"])
+        mesh = Mesh.current("cuda:0")
+        state, frozen = create_train_state(config, models)
+        step = make_train_step(config, models, mesh=mesh)
+        zero_counts()
+        state, metrics = step(state, frozen, mesh.shard_batch(inputs["batch"]),
+                              mesh.rows(inputs["noise"]))
+        torch.cuda.synchronize()
+        torch.save(dict(
+            counts=read_counts(),
+            metrics={k: float(v) for k, v in metrics.items()},
+            sds={k: {n: v.cpu() for n, v in m.state_dict().items()}
+                 for k, m in mods.items()},
+            moments={k: v.cpu() for k, v in
+                     optimizer_moments(state).items()}),
+            f"{out_path}.{rank}")
+    finally:
+        distributed.shutdown()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_mesh_step(tmp: str):
+    """(18a) the data-parallel step: two gloo ranks on the one card,
+    float32 (TF32 off), cfg/bird.yml, global B=8 (4 per rank), one step
+    against the single-process step at B=8 on the card: metrics, Adam
+    moments, parameters and BN running stats at PERF.md §2's card bars."""
+    import torch
+    import torch.multiprocessing as mp
+
+    from eegan_tpu_torch.training.state import create_train_state
+    from eegan_tpu_torch.training.steps import make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    config = bird_config("float32")
+    models, mods = train_models(config, "cuda")
+    sds = {k: {n: v.cpu().clone() for n, v in m.state_dict().items()}
+           for k, m in mods.items()}
+    batch, noise = train_inputs(config, MESH_BATCH, SEED + 5)
+    state, frozen = create_train_state(config, models)
+    zero_counts()
+    state, metrics = make_train_step(config, models)(state, frozen, batch,
+                                                     noise)
+    torch.cuda.synchronize()
+    single_counts = read_counts()
+    want = dict(metrics={k: float(v) for k, v in metrics.items()},
+                sds={k: m.state_dict() for k, m in mods.items()},
+                moments=optimizer_moments(state))
+    in_path, out_path = os.path.join(tmp, "mesh_in.pt"), os.path.join(
+        tmp, "mesh_out")
+    torch.save(dict(weights=sds, batch=batch, noise=noise), in_path)
+    t0 = time.perf_counter()
+    mp.start_processes(_mesh_rank, args=(_free_port(), in_path, out_path),
+                       nprocs=MESH_RANKS, join=True, start_method="spawn")
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(f"{out_path}.{r}", weights_only=False)
+             for r in range(MESH_RANKS)]
+    result = dict(batch=MESH_BATCH, ranks=MESH_RANKS, backend="gloo",
+                  ranks_s=ranks_s, single_launches=single_counts)
+    for r, got in enumerate(ranks):
+        what = f"mesh step rank {r} vs the single-process step"
+        metric_err = metric_errors(got["metrics"], want["metrics"], what)
+        moments = moment_gaps(got["moments"], want["moments"])
+        if max(moments.values()) > 1e-3:
+            fail(f"{what}: Adam moments {moments}")
+        param_err, bad = adam_param_errors(config, got["sds"], want["sds"])
+        if bad:
+            fail(f"{what}: params out of bounds in {bad}: {param_err}")
+        result[f"rank{r}"] = dict(metric_max_abs_err=max(metric_err.values()),
+                                  moments=moments, params=param_err,
+                                  launches=got["counts"])
+    local = MESH_BATCH // MESH_RANKS
+    for r, got in enumerate(ranks):
+        if got["counts"] != single_counts:
+            fail(f"mesh rank {r} launches {got['counts']}, the "
+                 f"single-process step {single_counts}")
+    log(f"phase 18 mesh ok: {MESH_RANKS} gloo ranks on one card at local "
+        f"B={local} (kernel 3 at (Bi, Bt) = ({local}, {MESH_BATCH})) match "
+        f"the single-process step at B={MESH_BATCH}: "
+        f"{ {r: result[f'rank{r}']['moments'] for r in range(MESH_RANKS)} }; "
+        f"launches per rank {ranks[0]['counts']}; {ranks_s:.1f} s")
+    return result
+
+
+def phase_nccl_cli(tmp: str, data_dir: str):
+    """(18b) ``python -m eegan_tpu_torch.train --distributed`` as one NCCL
+    rank (EEGAN_NUM_PROCESSES=1) on phase 14's demo corpus, cfg/bird.yml
+    bf16 B=32, NCCL_ITERS iterations: the mesh path's collectives on NCCL;
+    its images/s."""
+    port = _free_port()
+    env = dict(os.environ, EEGAN_COORDINATOR=f"127.0.0.1:{port}",
+               EEGAN_NUM_PROCESSES="1", EEGAN_PROCESS_ID="0")
+    t0 = time.perf_counter()
+    stdout = run_cli(
+        ["eegan_tpu_torch.train", "--distributed", "--max_epochs", "1",
+         "--max_iters", str(NCCL_ITERS), "--output_dir", "nccl",
+         "--set", f"SAVE_DIR={tmp}", "--set", f"DATA_DIR={data_dir}",
+         "--set", "TEXT.CAPTIONS_PER_IMAGE=2", "--set", "TEXT.DAMSM_NAME=''",
+         "--set", "RUNTIME.ALLOW_RANDOM_ENCODERS=true",
+         "--set", "RUNTIME.PALLAS_AFFINE=true",
+         "--set", "RUNTIME.PALLAS_DAMSM=true"], env=env)
+    cli_s = time.perf_counter() - t0
+    if "rank 0 of 1" not in stdout or "backend nccl" not in stdout:
+        fail(f"train --distributed did not run as NCCL rank 0 of 1:\n"
+             f"{stdout[-2000:]}")
+    rates = [float(line.split()[2]) for line in stdout.splitlines()
+             if line.startswith("epoch ") and line.endswith("images/s")]
+    if not rates or not all(math.isfinite(r) and r > 0 for r in rates):
+        fail(f"train --distributed printed no images/s:\n{stdout[-2000:]}")
+    for rel in ("Model/state/1.pt", "Model/netG_1.pth",
+                "writer/metrics.jsonl"):
+        if not os.path.isfile(os.path.join(tmp, "nccl", rel)):
+            fail(f"train --distributed did not write {rel}")
+    log(f"phase 18 nccl ok: train --distributed, one NCCL rank, "
+        f"{NCCL_ITERS} iterations B={TRAIN_BATCH} bf16: {rates[-1]} "
+        f"images/s ({cli_s:.1f} s with start-up)")
+    return dict(images_per_s=rates[-1], iterations=NCCL_ITERS,
+                batch=TRAIN_BATCH, dtype="bfloat16", cli_s=cli_s)
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", default=os.path.join(ROOT, "build",
@@ -2238,7 +2581,12 @@ def main() -> None:
         trainer = phase_trainer(os.path.join(tmp, "trainer"))
         clis = phase_clis(os.path.join(tmp, "clis"))
         evaluation = phase_eval(os.path.join(tmp, "trainer"))
-    damsm_parity = phase_damsm_parity()
+        damsm_parity = phase_damsm_parity()
+        remat = phase_remat()
+        mesh = dict(step=phase_mesh_step(tmp),
+                    nccl_cli=phase_nccl_cli(
+                        os.path.join(tmp, "nccl"),
+                        os.path.join(tmp, "trainer", "data")))
 
     card = {"gpu": name, "nvidia_smi": smi}
     step_line = {"sample_step": {
@@ -2263,7 +2611,7 @@ def main() -> None:
                "affine_backward_launches": bwd_rows,
                "damsm": damsm_rows, **step_line, **train_line,
                **trainer_line, "clis": clis, "damsm_step_parity": damsm_parity,
-               "evaluation": evaluation,
+               "evaluation": evaluation, "remat": remat, "mesh": mesh,
                "breakdown": breakdown, "train_breakdown": train_breakdown,
                "bf16_train_metrics": bf16_train["metrics"],
                "checks": {"affine_max_abs_err": {"float32": err_f32,
@@ -2283,6 +2631,14 @@ def main() -> None:
                     if k != "float32_parity"}))
     log(json.dumps(trainer_line))
     log(json.dumps(eval_line))
+    log(json.dumps({"remat": {"times": remat["times"],
+                              "moments": remat["moments"],
+                              "launches": remat["launches"]},
+                    "mesh": {"step": {k: v for k, v in mesh["step"].items()
+                                      if not k.startswith("rank")},
+                             "moments": {r: mesh["step"][f"rank{r}"]["moments"]
+                                         for r in range(MESH_RANKS)},
+                             "nccl_cli": mesh["nccl_cli"]}, **card}))
     for key, value in (("breakdown", breakdown),
                        ("train_breakdown", train_breakdown)):
         log(json.dumps({key: {k: v for k, v in value.items()
@@ -2349,6 +2705,9 @@ def main() -> None:
         row["launches_trainer_epoch"] = trainer["launches_epoch"][row["name"]]
         row["launches_eval_batch"] = \
             evaluation["times"]["launches_per_batch"][row["name"]]
+        row["launches_remat_step"] = remat["launches"][row["name"]]
+        row["launches_mesh_rank_step"] = \
+            mesh["step"]["rank0"]["launches"][row["name"]]
     log(json.dumps(kernels))
     log(smi)
     log(json.dumps({"ok": True, "device": {

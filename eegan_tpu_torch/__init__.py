@@ -7,21 +7,24 @@ package so each counterpart is easy to find.
 
 Layout:
     config        typed config tree + strict YAML merge (copy of eegan_tpu's)
-    data          caption prep, attribute parsing, the CUB datasets and
-                  transforms, the native resize, the batching pipeline and
-                  device prefetch, synthetic data, the demo corpus
+    data          caption and bounding-box prep, attribute parsing and its
+                  pickle, the CUB datasets and transforms, the native
+                  resize, the batching pipeline and device prefetch,
+                  synthetic data, the demo corpus
     evaluation    FID, Inception Score and its classifier's fine-tune, the
                   checkpoint sweep with R-precision, evaluation overlapped
                   with training
     models        generator, AttrEnhance, discriminators, text and image
                   encoders as torch nn.Modules
     ops           hand-written CUDA kernels with their plain PyTorch versions
+    parallel      data parallelism over processes with global-batch math
     training      the train and sampling steps, the trainer, checkpoints,
                   logging, DAMSM pretraining
     utils         image IO, weight conversion (JAX trees, AttnGAN .pth)
     sample        the sampling CLI (``python -m eegan_tpu_torch.sample``)
     train         the training CLI (``python -m eegan_tpu_torch.train``)
     pretrain_damsm  the DAMSM pretraining CLI
+    prepare_attributes  a corpus's attribute pickle
     test, fid_score, inception_score, finetune_inception
                   the evaluation CLIs
 

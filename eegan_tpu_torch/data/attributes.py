@@ -1,7 +1,10 @@
-"""Attribute phrases parsed from free-text captions (``--from_code``/``--from_txt``).
+"""Attribute phrases parsed from captions: for ``--from_code``/``--from_txt``
+sampling, and offline for a corpus's ``attributes/<name>.pickle``
+(:func:`build_attributes_pickle`, ``python -m
+eegan_tpu_torch.prepare_attributes``).
 
-Copy of ``eegan_tpu/data/attributes.py``'s ``AttributeExtractor`` with the
-hermetic lexicon tagger (the port imports nothing of the JAX package).
+Copy of ``eegan_tpu/data/attributes.py`` with the hermetic lexicon tagger
+(the port imports nothing of the JAX package).
 Rebuilds `PrepareAttrs` (reference `prepare_attributes.py:44-327`): captions
 are POS-tagged and chunked with per-dataset regex grammars; NP chunks
 become attribute phrases; "split" grammars *subtract* noun-verb fragments.
@@ -9,16 +12,20 @@ become attribute phrases; "split" grammars *subtract* noun-verb fragments.
 The JAX package chunks with ``nltk.RegexpParser``. The port carries its own
 :class:`RegexpChunker` with the same semantics for the grammars used here
 (one ``LABEL: {tag pattern}`` chunk rule per line, each line one stage), so
-sampling needs no nltk. The Perceptron and Stanford taggers still come from
+sampling and the lexicon-mode pickle need no nltk. The Perceptron and Stanford taggers still come from
 nltk and are imported only when asked for.
 
 One deliberate difference: :meth:`AttributeExtractor.parse_caption` returns
 the phrases sorted, where the JAX copy returns them in ``set`` order (which
-varies with the interpreter's hash seed); the set of phrases is the same.
+varies with the interpreter's hash seed); the set of phrases is the same,
+and so is every caption's list in an attributes pickle once sorted.
 """
 
 from __future__ import annotations
 
+import multiprocessing
+import os
+import pickle
 import re
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -315,3 +322,51 @@ class AttributeExtractor:
         attrs = self.parse_caption(words)
         return [[wordtoix[w] for w in attr if w in wordtoix]
                 for attr in attrs]
+
+
+def _pool_worker(args):
+    (dataset_name, tagger_mode, chunk, ixtoword, wordtoix) = args
+    extractor = AttributeExtractor(dataset_name, tagger_mode)
+    return [extractor.parse_id_caption(c, ixtoword, wordtoix) for c in chunk]
+
+
+def extract_all(captions: Sequence[Sequence[int]], ixtoword, wordtoix,
+                dataset_name: str, tagger_mode: str = "lexicon",
+                workers: int = 16, chunk_size: int = 50) -> List:
+    """Multiprocess extraction over all captions (reference
+    `multi_thread_processing`, prepare_attributes.py:276-311)."""
+    chunks = [captions[i:i + chunk_size]
+              for i in range(0, len(captions), chunk_size)]
+    args = [(dataset_name, tagger_mode, c, ixtoword, wordtoix) for c in chunks]
+    if workers <= 1 or len(chunks) <= 1:
+        results = [_pool_worker(a) for a in args]
+    else:
+        # spawn: a forked child of a process with threads (CUDA's, the
+        # BLAS pools) may inherit a held lock.
+        with multiprocessing.get_context("spawn").Pool(workers) as pool:
+            results = pool.map(_pool_worker, args)
+    out: List = []
+    for r in results:
+        out.extend(r)
+    return out
+
+
+def build_attributes_pickle(data_dir: str, dataset_name: str,
+                            attr_name: str = "EE-GAN",
+                            tagger_mode: str = "lexicon",
+                            workers: int = 16) -> str:
+    """Full artefact build: captions.pickle -> attributes/<name>.pickle."""
+    from eegan_tpu_torch.data.datasets import load_captions_pickle
+
+    train_caps, test_caps, ixtoword, wordtoix, _ = load_captions_pickle(data_dir)
+    train_attrs = extract_all(train_caps, ixtoword, wordtoix, dataset_name,
+                              tagger_mode, workers)
+    test_attrs = extract_all(test_caps, ixtoword, wordtoix, dataset_name,
+                             tagger_mode, workers)
+    out_dir = os.path.join(data_dir, "attributes")
+    os.makedirs(out_dir, exist_ok=True)
+    out_path = os.path.join(out_dir, f"{attr_name}.pickle")
+    with open(out_path, "wb") as f:
+        pickle.dump([train_attrs, test_attrs], f, protocol=2)
+    print("Save to:", out_path)
+    return out_path

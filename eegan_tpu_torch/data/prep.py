@@ -1,10 +1,12 @@
-"""Offline artefact builder: caption vocab pickle.
+"""Offline artefact builders: the caption vocab pickle and the bounding
+boxes.
 
-Copy of ``eegan_tpu/data/prep.py``'s caption half (the port imports nothing
-of the JAX package). Rebuilds `InitDataMethod` (reference
-`datasets.py:55-189`): tokenize the per-image caption .txt files (regex
-``\\w+``, lowercase, ascii-filter), build the vocabulary (every word), and
-emit ``captions.pickle`` holding the word-id lists.
+Copy of ``eegan_tpu/data/prep.py`` (the port imports nothing of the JAX
+package). Rebuilds `InitDataMethod` (reference `datasets.py:55-189`):
+tokenize the per-image caption .txt files (regex ``\\w+``, lowercase,
+ascii-filter), build the vocabulary (every word), and emit
+``captions.pickle`` holding the word-id lists; and CUB's
+``bounding_boxes.txt`` as ``bounding_boxes.pickle``.
 """
 
 from __future__ import annotations
@@ -92,5 +94,24 @@ def build_captions_pickle(data_dir: str, captions_per_image: int,
     out_path = out_path or os.path.join(data_dir, "captions.pickle")
     with open(out_path, "wb") as f:
         pickle.dump([train_ids, test_ids, ixtoword, wordtoix], f, protocol=2)
+    print("Save to:", out_path)
+    return out_path
+
+
+def build_bbox_pickle(data_dir: str, out_path: str = "") -> str:
+    """CUB bounding_boxes.txt + images.txt -> key->bbox pickle
+    (reference `init_bounding_box`, datasets.py:74-96)."""
+    bboxes = {}
+    with open(os.path.join(data_dir, "bounding_boxes.txt")) as f:
+        bbox_rows = [[int(float(v)) for v in line.split()[1:]]
+                     for line in f if line.strip()]
+    with open(os.path.join(data_dir, "images.txt")) as f:
+        names = [line.split()[1] for line in f if line.strip()]
+    for name, bbox in zip(names, bbox_rows):
+        bboxes[name[:-4]] = bbox
+
+    out_path = out_path or os.path.join(data_dir, "bounding_boxes.pickle")
+    with open(out_path, "wb") as f:
+        pickle.dump(bboxes, f, protocol=2)
     print("Save to:", out_path)
     return out_path

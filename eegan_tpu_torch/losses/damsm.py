@@ -13,6 +13,14 @@ Two quirks of the reference are kept on purpose:
 
 These are the plain versions of the DAMSM kernels: ``ops/damsm.py`` calls
 :func:`word_region_log_sims` for CPU tensors.
+
+With a ``mesh`` (``parallel/mesh.py``) each rank passes its own rows of the
+batch and the losses are still the global batch's, as in the JAX step: the
+text side is gathered from every rank, each rank computes its images' rows
+of the grid against all texts, and the rows are gathered
+(:func:`contrastive_losses`) before the two cross-entropies. The gathers are differentiable, so each rank's inputs get
+the gradient of the global loss (as many times over as there are ranks,
+which the ranks' gradient average then divides out).
 """
 
 from __future__ import annotations
@@ -49,6 +57,22 @@ def _masked(scores, class_ids):
                               NEG_INF)
 
 
+def contrastive_losses(sims: torch.Tensor,
+                       class_ids: Optional[torch.Tensor], mesh=None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(image->text, text->image) cross-entropies with diagonal targets over
+    the (B_img, B_txt) grid, same-class pairs off the diagonal masked out.
+    Under a ``mesh``, ``sims`` holds this rank's image rows against every
+    text, and ``class_ids`` this rank's classes: both are gathered first."""
+    if mesh is not None:
+        sims = mesh.all_gather(sims)
+        if class_ids is not None:
+            class_ids = mesh.all_gather(class_ids.to(sims.device))
+    sims = _masked(sims, class_ids)
+    labels = torch.arange(sims.shape[0], device=sims.device)
+    return cross_entropy_int(sims, labels), cross_entropy_int(sims.T, labels)
+
+
 def _cosine_grid(a: torch.Tensor, b: torch.Tensor, gamma3: float,
                  eps: float) -> torch.Tensor:
     scores = a @ b.T
@@ -58,13 +82,15 @@ def _cosine_grid(a: torch.Tensor, b: torch.Tensor, gamma3: float,
 
 def sent_loss(cnn_code: torch.Tensor, rnn_code: torch.Tensor,
               class_ids: Optional[torch.Tensor], gamma3: float = 10.0,
-              eps: float = 1e-8) -> Tuple[torch.Tensor, torch.Tensor]:
+              eps: float = 1e-8, mesh=None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Bidirectional sentence-image contrastive CE (reference `sent_loss`):
-    (image->text, text->image) with diagonal targets."""
-    scores = _masked(_cosine_grid(cnn_code, rnn_code, gamma3, eps), class_ids)
-    labels = torch.arange(scores.shape[0], device=scores.device)
-    return cross_entropy_int(scores, labels), cross_entropy_int(scores.T,
-                                                                labels)
+    (image->text, text->image) with diagonal targets. Under a ``mesh``:
+    this rank's image codes against the gathered text codes."""
+    if mesh is not None:
+        rnn_code = mesh.all_gather(rnn_code)
+    return contrastive_losses(_cosine_grid(cnn_code, rnn_code, gamma3, eps),
+                              class_ids, mesh)
 
 
 def attend_words_to_regions(words: torch.Tensor, regions: torch.Tensor,
@@ -116,12 +142,16 @@ def word_region_log_sims(regions: torch.Tensor, words: torch.Tensor,
 def words_loss(region_features: torch.Tensor, words_emb: torch.Tensor,
                cap_lens: torch.Tensor, class_ids: Optional[torch.Tensor],
                gamma1: float = 5.0, gamma2: float = 5.0, gamma3: float = 10.0,
-               eps: float = 1e-8) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Bidirectional word-region contrastive CE (reference `words_loss`)."""
-    sims = words_similarity(region_features, words_emb, cap_lens, class_ids,
-                            gamma1, gamma2, gamma3, eps)
-    labels = torch.arange(sims.shape[0], device=sims.device)
-    return cross_entropy_int(sims, labels), cross_entropy_int(sims.T, labels)
+               eps: float = 1e-8, mesh=None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Bidirectional word-region contrastive CE (reference `words_loss`).
+    Under a ``mesh``: this rank's regions against the gathered words."""
+    if mesh is not None:
+        words_emb = mesh.all_gather(words_emb)
+        cap_lens = mesh.all_gather(cap_lens.to(words_emb.device))
+    sims = word_region_log_sims(region_features, words_emb, cap_lens, gamma1,
+                                gamma2, eps) * gamma3
+    return contrastive_losses(sims, class_ids, mesh)
 
 
 def words_similarity(region_features: torch.Tensor, words_emb: torch.Tensor,

@@ -13,8 +13,11 @@ features for the matched and mismatched conditions (reference
 `train.py:340-346`). Images come in NHWC (B, s, s, 3), as the JAX package's;
 inside, tensors are NCHW in channels_last memory format. State-dict keys are
 the reference's (``block0.conv_r.0.weight``, ``COND_DNET.joint_conv.2
-.weight``, ``COND_DNET.joinConv.0.weight``...). RUNTIME.S2D_CONVS (a TPU
-lane-packing lowering of the same math) is not ported.
+.weight``, ``COND_DNET.joinConv.0.weight``...). With ``remat``
+(RUNTIME.REMAT and REMAT_D) each down block runs under
+:func:`~eegan_tpu_torch.models.layers.checkpointed`, through the MAGP's
+double backward too. RUNTIME.S2D_CONVS (a TPU lane-packing lowering of the
+same math) is not ported.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from eegan_tpu_torch.models.layers import (
     Conv2d,
     Linear,
     avg_pool_2x,
+    checkpointed,
     conv1x1,
     conv3x3,
     conv4x4_down,
@@ -125,9 +129,10 @@ class Discriminator(nn.Module):
 
     def __init__(self, ndf: int, scale: int, disc_class: bool = False,
                  class_nums: int = 200, nef: int = 256,
-                 compute_dtype=torch.float32):
+                 compute_dtype=torch.float32, remat: bool = False):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.remat = remat
         ladder = channel_ladder(ndf, scale)
         self.conv_img = conv3x3(3, ndf, bias=True, compute_dtype=compute_dtype)
         fin = ndf
@@ -148,7 +153,8 @@ class Discriminator(nn.Module):
         """x: (B, s, s, 3) NHWC -> (B, C, 4, 4) features (channels_last)."""
         x = self.conv_img(x.permute(0, 3, 1, 2))
         for i in range(self.n_blocks):
-            x = getattr(self, f"block{i}")(x)
+            block = getattr(self, f"block{i}")
+            x = checkpointed(block, x) if self.remat else block(x)
         return x
 
     def head(self, feat, cond) -> Union[torch.Tensor,

@@ -7,8 +7,9 @@ frozen image encoder.
 Unlike the JAX factory, RUNTIME.PALLAS_AFFINE and PALLAS_DAMSM are not
 gated on the backend: the ops dispatch on the tensors' device themselves
 (CUDA tensors launch the kernels, CPU tensors take the plain versions).
-RUNTIME.S2D_CONVS is a TPU lane-packing lowering of the same math and is
-ignored; the train step refuses the REMAT keys, which are not ported.
+RUNTIME.REMAT (with REMAT_BLOCKS), REMAT_D and REMAT_IMAGE_ENCODER are
+wired as ``eegan_tpu/models/factory.py:54-70`` wires them. RUNTIME.S2D_CONVS
+is a TPU lane-packing lowering of the same math and is ignored.
 """
 
 from __future__ import annotations
@@ -52,16 +53,19 @@ def build_models(config: Config, n_words: int, device="cuda") -> ModelBundle:
     emb = config.TEXT.EMBEDDING_DIM
     cl = torch.channels_last
     scales = tuple(config.imsizes)
+    rt = config.RUNTIME
     generator = Generator(ngf=config.GAN.GF_DIM, nz=config.GAN.Z_DIM,
                           cond_dim=emb, compute_dtype=dt,
-                          up_fused=config.RUNTIME.FUSED_UPSAMPLE,
-                          pallas_affine=config.RUNTIME.PALLAS_AFFINE)
+                          up_fused=rt.FUSED_UPSAMPLE,
+                          pallas_affine=rt.PALLAS_AFFINE, remat=rt.REMAT,
+                          remat_blocks=rt.REMAT_BLOCKS)
     discs = tuple(
         Discriminator(ndf=config.GAN.DF_DIM, scale=s,
                       disc_class=config.TRAIN.USE_CLASS
                       and i == len(scales) - 1,
                       class_nums=config.TRAIN.CLASS_NUM, nef=emb,
-                      compute_dtype=dt).to(dev, memory_format=cl)
+                      compute_dtype=dt, remat=rt.REMAT and rt.REMAT_D
+                      ).to(dev, memory_format=cl)
         for i, s in enumerate(scales))
     return ModelBundle(
         generator=generator.to(dev, memory_format=cl),
@@ -69,7 +73,8 @@ def build_models(config: Config, n_words: int, device="cuda") -> ModelBundle:
         discriminators=discs,
         text_encoder=TextEncoder(ntoken=n_words, nhidden=emb,
                                  rnn_type=config.RNN_TYPE).to(dev),
-        image_encoder=ImageEncoder(nef=emb, compute_dtype=dt).to(
+        image_encoder=ImageEncoder(nef=emb, compute_dtype=dt,
+                                   remat=rt.REMAT_IMAGE_ENCODER).to(
             dev, memory_format=cl),
         scales=scales,
         device=dev,

@@ -24,8 +24,12 @@ subpixel conv of ``ops/upconv.py``: the same math. ``pallas_affine``
 ``ops/affine.affine_mask_relu`` (the CUDA kernels for CUDA tensors, forward
 and backward; in train mode the batch statistics come from
 ``TorchBatchNorm.batch_stats`` with their graph, so dmean and dvar flow back
-through them). RUNTIME.REMAT is not ported (the train step refuses it) and
-RUNTIME.S2D_CONVS is ignored.
+through them). ``remat`` (RUNTIME.REMAT) runs the chosen SAGB blocks and
+the three Cum blocks under :func:`~eegan_tpu_torch.models.layers.checkpointed`
+(``remat_blocks``, RUNTIME.REMAT_BLOCKS: a comma list of block indices and
+``cum``; empty for all), so their activations are recomputed in the
+backward, the affine kernel's forward included. RUNTIME.S2D_CONVS is
+ignored.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from eegan_tpu_torch.models.layers import (
     MaskHead,
     ToImage,
     TorchBatchNorm,
+    checkpointed,
     conv1x1,
     conv3x3,
     resize_bilinear_align_corners,
@@ -207,10 +212,13 @@ class Generator(nn.Module):
 
     def __init__(self, ngf: int = 32, nz: int = 100, cond_dim: int = 256,
                  compute_dtype=torch.float32, up_fused: bool = False,
-                 pallas_affine: bool = False):
+                 pallas_affine: bool = False, remat: bool = False,
+                 remat_blocks: str = ""):
         super().__init__()
         self.ngf = ngf
         self.compute_dtype = compute_dtype
+        self.remat = remat
+        self.remat_blocks = remat_blocks
         dt = compute_dtype
         chans = [ngf * 8, ngf * 8, ngf * 8, ngf * 8, ngf * 4, ngf * 2, ngf]
         self.fc = Linear(nz, ngf * 8 * 4 * 4, compute_dtype=dt)
@@ -230,6 +238,23 @@ class Generator(nn.Module):
         self.get_image_128 = ToImage(ngf * 2, compute_dtype=dt)
         self.get_image_256 = ToImage(ngf, compute_dtype=dt)
 
+    def _remat_wanted(self, key) -> bool:
+        if not self.remat:
+            return False
+        if not self.remat_blocks:
+            return True
+        return str(key) in {t.strip() for t in self.remat_blocks.split(",")}
+
+    def _block(self, ix: int, *args):
+        block = self.blocks[ix]
+        if self._remat_wanted(ix):
+            return checkpointed(block, *args)
+        return block(*args)
+
+    def _cum(self, cum: CumBlock, *args):
+        return checkpointed(cum, *args) if self._remat_wanted("cum") \
+            else cum(*args)
+
     def forward(self, z, sent, attrs) -> List[torch.Tensor]:
         dt = self.compute_dtype
         b = z.shape[0]
@@ -242,17 +267,17 @@ class Generator(nn.Module):
         # identity: 4x4 logits, 4x4 features).
         stage_mask = self.init_mask(out)
         for ix in range(4):  # explore: 4, 8, 16, 32
-            out, stage_mask = self.blocks[ix](out, sent, sent, stage_mask)
+            out, stage_mask = self._block(ix, out, sent, sent, stage_mask)
         x_32 = out
         feats = []
         for ix in range(4, 7):  # exploit: 64, 128, 256
-            out, new_mask = self.blocks[ix](out, sent, attrs, stage_mask)
+            out, new_mask = self._block(ix, out, sent, attrs, stage_mask)
             if new_mask is not None:
                 stage_mask = new_mask
             feats.append(out)
-        cum_64 = self.cum_64(x_32, feats[0])
-        cum_128 = self.cum_128(cum_64, feats[1])
-        cum_256 = self.cum_256(cum_128, feats[2])
+        cum_64 = self._cum(self.cum_64, x_32, feats[0])
+        cum_128 = self._cum(self.cum_128, cum_64, feats[1])
+        cum_256 = self._cum(self.cum_256, cum_128, feats[2])
         imgs = (self.get_image_64(cum_64), self.get_image_128(cum_128),
                 self.get_image_256(cum_256))
         return [img.float().permute(0, 2, 3, 1).contiguous() for img in imgs]

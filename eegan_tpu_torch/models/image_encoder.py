@@ -11,7 +11,10 @@ top level, as in the reference's state dict (``Conv2d_1a_3x3.conv.weight``,
 
 The encoder is frozen (eval-mode batch norm, no parameter requires grad),
 but gradients flow through it to the image: the G phase trains the
-generator through the DAMSM losses.
+generator through the DAMSM losses. With ``remat``
+(RUNTIME.REMAT_IMAGE_ENCODER) the trunk runs under
+:func:`~eegan_tpu_torch.models.layers.checkpointed`, so its activations
+are recomputed in that backward instead of held.
 """
 
 from __future__ import annotations
@@ -23,14 +26,17 @@ import torch
 from eegan_tpu_torch.models.inception import InceptionV3
 from eegan_tpu_torch.models.layers import (
     Linear,
+    checkpointed,
     conv1x1,
     resize_bilinear_half_pixel,
 )
 
 
 class ImageEncoder(InceptionV3):
-    def __init__(self, nef: int = 256, compute_dtype=torch.float32):
+    def __init__(self, nef: int = 256, compute_dtype=torch.float32,
+                 remat: bool = False):
         super().__init__(num_classes=0, compute_dtype=compute_dtype)
+        self.remat = remat
         self.emb_features = conv1x1(768, nef, compute_dtype=compute_dtype)
         self.emb_cnn_code = Linear(2048, nef, compute_dtype=compute_dtype)
         for p in (self.emb_features.weight, self.emb_cnn_code.weight):
@@ -41,7 +47,9 @@ class ImageEncoder(InceptionV3):
         (B, 17, 17, nef), code (B, nef)), both in the parameters' dtype
         (float32)."""
         x = x.permute(0, 3, 1, 2).to(self.compute_dtype)
-        taps = super().forward(resize_bilinear_half_pixel(x, (299, 299)))
+        x = resize_bilinear_half_pixel(x, (299, 299))
+        trunk = super().forward
+        taps = checkpointed(trunk, x) if self.remat else trunk(x)
         region = self.emb_features(taps["mixed_6e"])
         code = self.emb_cnn_code(taps["pool3"])
         dt = self.emb_features.weight.dtype

@@ -15,6 +15,7 @@
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Optional, Tuple
 
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -146,7 +148,19 @@ class TorchBatchNorm(nn.BatchNorm2d):
     ``return_stats=True`` returns ``(mean, var)`` instead of the normalised
     tensor (running stats still updated), for callers that fuse the
     normalise into a kernel. Eval mode uses the running stats.
+
+    With a ``mesh`` of more than one rank (``parallel/mesh.py``), the
+    per-channel sum and sum of squares are summed over the ranks (float32,
+    through the mesh's differentiable all-reduce), so the statistics and
+    ``n`` are the global batch's, as the JAX package computes them over the
+    sharded batch; ``n_override`` then counts the local batch and is scaled
+    to the global one. While ``recomputing`` is set (:func:`checkpointed`'s
+    recompute in the backward) the running stats are left alone: they move
+    once per forward.
     """
+
+    mesh = None
+    recomputing = False
 
     def __init__(self, num_features: int, affine: bool = True,
                  eps: float = 1e-5):
@@ -157,9 +171,21 @@ class TorchBatchNorm(nn.BatchNorm2d):
         if not self.training:
             return self.running_mean, self.running_var
         xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3))
-        var = (xf.square().mean(dim=(0, 2, 3)) - mean.square()).clamp_min(0.0)
         n = n_override if n_override is not None else x.numel() // x.shape[1]
+        mesh = self.mesh
+        if mesh is not None and mesh.size > 1:
+            moments = torch.stack([xf.sum(dim=(0, 2, 3)),
+                                   xf.square().sum(dim=(0, 2, 3))])
+            moments = mesh.all_reduce_sum(moments)
+            count = x.numel() // x.shape[1] * mesh.size
+            mean, mean2 = moments[0] / count, moments[1] / count
+            n *= mesh.size
+        else:
+            mean = xf.mean(dim=(0, 2, 3))
+            mean2 = xf.square().mean(dim=(0, 2, 3))
+        var = (mean2 - mean.square()).clamp_min(0.0)
+        if self.recomputing:
+            return mean, var
         with torch.no_grad():
             unbiased = var * (n / max(n - 1, 1))
             self.running_mean.mul_(1.0 - self.momentum).add_(
@@ -179,6 +205,40 @@ class TorchBatchNorm(nn.BatchNorm2d):
         if self.affine:
             y = y * self.weight[:, None, None] + self.bias[:, None, None]
         return y
+
+
+class _Recomputing:
+    """Sets ``recomputing`` on a module's batch norms while entered;
+    re-enterable, since a double backward (the MAGP) unpacks a checkpoint's
+    saved tensors, and so recomputes, more than once."""
+
+    def __init__(self, module: nn.Module):
+        self.norms = [m for m in module.modules()
+                      if isinstance(m, TorchBatchNorm)]
+
+    def __enter__(self):
+        for m in self.norms:
+            m.recomputing = True
+
+    def __exit__(self, *exc):
+        for m in self.norms:
+            m.recomputing = False
+
+
+def checkpointed(fn, *args):
+    """``fn(*args)`` under activation checkpointing (RUNTIME.REMAT*, the
+    counterpart of flax's ``nn.remat``): its activations are dropped and
+    recomputed in the backward. ``fn`` is a module or a module's bound
+    method. Non-reentrant, so that ``torch.autograd.grad(create_graph=True)``
+    works through it (the MAGP). The module's batch norms skip their
+    running-stat update in the recompute. Without autograd recording, a
+    plain call."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    module = fn if isinstance(fn, nn.Module) else fn.__self__
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          _Recomputing(module)))
 
 
 def leaky_relu(x, negative_slope: float = 0.2):

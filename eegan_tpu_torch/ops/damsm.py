@@ -35,9 +35,7 @@ from typing import Optional, Tuple
 import torch
 
 from eegan_tpu_torch.losses.damsm import (
-    NEG_INF,
-    cross_entropy_int,
-    same_class_mask,
+    contrastive_losses,
     word_region_log_sims,
 )
 from eegan_tpu_torch.ops import _build
@@ -350,14 +348,16 @@ def words_similarity_fused(regions, words, cap_lens, gamma1: float = 5.0,
 def words_loss_fused(region_features, words_emb, cap_lens,
                      class_ids: Optional[torch.Tensor] = None,
                      gamma1: float = 5.0, gamma2: float = 5.0,
-                     gamma3: float = 10.0
+                     gamma3: float = 10.0, mesh=None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Drop-in for ``losses.damsm.words_loss`` backed by the fused
-    similarity (the port of ``words_loss_pallas``, damsm_pallas.py:401-419)."""
+    similarity (the port of ``words_loss_pallas``, damsm_pallas.py:401-419).
+    Under a ``mesh`` the words are gathered, this rank's regions give its
+    rows of the grid (the kernels at (Bi, Bt) = (B / ranks, B)), and the
+    rows are gathered before the cross-entropies."""
+    if mesh is not None:
+        words_emb = mesh.all_gather(words_emb)
+        cap_lens = mesh.all_gather(cap_lens.to(words_emb.device))
     sims = words_similarity_fused(region_features, words_emb, cap_lens,
                                   gamma1, gamma2) * gamma3
-    if class_ids is not None:
-        sims = sims.masked_fill(same_class_mask(class_ids.to(sims.device)),
-                                NEG_INF)
-    labels = torch.arange(sims.shape[0], device=sims.device)
-    return cross_entropy_int(sims, labels), cross_entropy_int(sims.T, labels)
+    return contrastive_losses(sims, class_ids, mesh)

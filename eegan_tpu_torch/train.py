@@ -6,10 +6,15 @@
 Keeps ``train.py``'s flags (reference `train.py:37-56` plus --dtype,
 --synthetic, --max_epochs, --max_iters, --profile_steps) and adds --device
 (``cuda`` by default; the CPU only with ``--device cpu``). --gpu is
-accepted and ignored, as in the JAX CLI. One device: --mesh accepts only a
-mesh of one device, and --mesh beyond that and --distributed raise
-``NotImplementedError`` (ROADMAP.md Queue 1, item 4 ports the meshes and
-multi-host runs). --profile_steps writes a ``torch.profiler`` trace to
+accepted and ignored, as in the JAX CLI. --mesh (default RUNTIME.MESH,
+``data:-1``: every visible GPU) with a data axis of N > 1 starts N
+processes on this host, one per GPU (N CPU processes with ``--device
+cpu``), joined by gloo or NCCL through a local coordinator; --batch_size
+stays the global batch. --distributed makes this process one rank of a
+group the environment describes (``parallel/distributed.py``); the ranks
+span the mesh's data axis. An fsdp axis (FSDP, ROADMAP.md Queue 1) or any
+other axis beyond 1 raises ``NotImplementedError``, and a data axis beyond
+the visible GPUs raises. --profile_steps writes a ``torch.profiler`` trace to
 <output_dir>/profile/trace.json. --eval_overlap scores each generator
 snapshot (FID against --fid_stats, R-precision) on a background thread
 while training goes on (``evaluation/async_eval.py``).
@@ -22,7 +27,10 @@ import datetime
 import os
 import pprint
 import shutil
+import socket
 import sys
+
+import torch
 
 
 def parse_args(argv=None):
@@ -47,7 +55,9 @@ def parse_args(argv=None):
     parser.add_argument("--class_coe", type=float, default=10)
     parser.add_argument("--sim_coe", type=float, default=0.05)
     parser.add_argument("--mesh", type=str, default=None,
-                        help="mesh spec; only a one-device mesh (data:1)")
+                        help="mesh spec, e.g. data:4: one process per GPU "
+                             "(CPU processes with --device cpu); default: "
+                             "RUNTIME.MESH")
     parser.add_argument("--dtype", type=str, default=None,
                         choices=["float32", "bfloat16"],
                         help="compute dtype override")
@@ -68,45 +78,107 @@ def parse_args(argv=None):
                         help="dataset mu/sigma .npz (or real-image folder)"
                              " for overlapped FID")
     parser.add_argument("--distributed", action="store_true",
-                        help="not in the port yet")
+                        help="this process is one rank of a multi-host group:"
+                             " EEGAN_COORDINATOR/NUM_PROCESSES/PROCESS_ID "
+                             "(or torchrun's env://)")
     parser.add_argument("--set", dest="overrides", action="append",
                         default=[], metavar="KEY=VALUE",
                         help="config override, e.g. --set GAN.GF_DIM=16")
     return parser.parse_args(argv)
 
 
-def check_single_device(args) -> None:
-    """Refuse what needs more than one device."""
-    if args.distributed:
-        raise NotImplementedError(
-            "--distributed (multi-host training) is not ported; see "
-            "ROADMAP.md Queue 1, item 4 (parallel)")
-    if args.mesh:
-        sizes = [axis.partition(":")[2] for axis in args.mesh.split(",")]
-        if any(size != "1" for size in sizes):
-            raise NotImplementedError(
-                f"--mesh {args.mesh}: the port trains on one device; meshes "
-                "are ROADMAP.md Queue 1, item 4 (parallel)")
-
-
-def main(argv=None):
-    args = parse_args(argv)
-    check_single_device(args)
-
-    from eegan_tpu_torch import resolve_device
+def load_config(args):
     from eegan_tpu_torch.config import apply_overrides, fresh_config
 
-    device = resolve_device(args.device)
     config = fresh_config(args.cfg_file)
     apply_overrides(config, args.overrides)
     config.TRAIN.BATCH_SIZE = args.batch_size
     config.TRAIN.CLASS_COE = args.class_coe
     config.TRAIN.SIM_COE = args.sim_coe
+    if args.mesh:
+        config.RUNTIME.MESH = args.mesh
     if args.dtype:
         config.RUNTIME.COMPUTE_DTYPE = args.dtype
+    return config
 
-    print("Using config:")
-    pprint.pprint(config.to_dict())
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def main(argv=None):
+    args = parse_args(argv)
+
+    from eegan_tpu_torch import resolve_device
+    from eegan_tpu_torch.parallel import distributed
+    from eegan_tpu_torch.parallel.mesh import Mesh, check_axes, data_axis_size
+
+    device = resolve_device(args.device)
+    config = load_config(args)
+    check_axes(config.RUNTIME.MESH)
+
+    if args.distributed:
+        distributed.initialize(device=device)
+        try:
+            rank_device = device
+            if device.type == "cuda":
+                rank_device = torch.device("cuda", torch.distributed.get_rank()
+                                           % torch.cuda.device_count())
+                torch.cuda.set_device(rank_device)
+            mesh = Mesh.current(rank_device)
+            ranks = data_axis_size(config.RUNTIME.MESH, mesh.size)
+            if ranks != mesh.size:
+                raise ValueError(
+                    f"mesh {config.RUNTIME.MESH!r} asks for {ranks} ranks; "
+                    f"the process group has {mesh.size}")
+            train(args, config, rank_device, mesh)
+        finally:
+            distributed.shutdown()
+        return
+
+    visible = torch.cuda.device_count() if device.type == "cuda" else None
+    ranks = data_axis_size(config.RUNTIME.MESH, visible)
+    if ranks == 1:
+        train(args, config, device)
+        return
+    # One process per device, joined through a local coordinator.
+    torch.multiprocessing.start_processes(
+        _rank_main, args=(sys.argv[1:] if argv is None else argv, ranks,
+                          _free_port()), nprocs=ranks,
+        join=True, start_method="spawn")
+
+
+def _rank_main(rank: int, argv, ranks: int, port: int) -> None:
+    """Rank ``rank`` of a one-host ``--mesh data:N`` run."""
+    from eegan_tpu_torch.parallel import distributed
+    from eegan_tpu_torch.parallel.mesh import Mesh
+
+    args = parse_args(argv)
+    base = torch.device(args.device)
+    if base.type == "cuda":
+        device = torch.device("cuda", rank)
+        torch.cuda.set_device(device)
+    else:
+        device = base
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // ranks))
+    distributed.initialize(f"127.0.0.1:{port}", ranks, rank, device=device)
+    try:
+        train(args, load_config(args), device, Mesh.current(device))
+    finally:
+        distributed.shutdown()
+
+
+def train(args, config, device, mesh=None) -> None:
+    """Build the Trainer (on one rank of ``mesh``, if given) and run it."""
+    main_rank = mesh is None or mesh.rank == 0
+    if mesh is not None:
+        print(f"rank {mesh.rank} of {mesh.size} on {device}, backend "
+              f"{torch.distributed.get_backend()}", flush=True)
+    if main_rank:
+        print("Using config:")
+        pprint.pprint(config.to_dict())
 
     # Output dir layout mirrors the reference (`train.py:529-543`).
     if args.debug:
@@ -117,14 +189,19 @@ def main(argv=None):
                                   f"{config.DATASET_NAME}_{stamp}")
     else:
         output_dir = os.path.join(config.SAVE_DIR or ".", args.output_dir)
-    os.makedirs(output_dir, exist_ok=True)
-
-    # Run provenance: copy entrypoint + cfg into the output dir.
-    try:
-        shutil.copy2(sys.argv[0], output_dir)
-        shutil.copy2(args.cfg_file, output_dir)
-    except (shutil.SameFileError, OSError):
-        pass
+    if mesh is not None and args.output_dir == "" and not args.debug:
+        # Every rank writes under rank 0's time stamp.
+        box = [output_dir]
+        torch.distributed.broadcast_object_list(box, src=0)
+        output_dir = box[0]
+    if main_rank:
+        os.makedirs(output_dir, exist_ok=True)
+        # Run provenance: copy entrypoint + cfg into the output dir.
+        try:
+            shutil.copy2(sys.argv[0], output_dir)
+            shutil.copy2(args.cfg_file, output_dir)
+        except (shutil.SameFileError, OSError):
+            pass
 
     from eegan_tpu_torch.training.trainer import Trainer
 
@@ -140,8 +217,8 @@ def main(argv=None):
     workers = 0 if args.debug else None
     trainer = Trainer(config, output_dir, dataset=dataset,
                       seed=args.manualSeed, data_workers=workers,
-                      device=device)
-    if args.eval_overlap:
+                      device=device, mesh=mesh)
+    if args.eval_overlap and main_rank:
         from eegan_tpu_torch.data.datasets import TextOnlyDataset
         from eegan_tpu_torch.evaluation.async_eval import (
             AsyncEvaluator,

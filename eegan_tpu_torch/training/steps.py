@@ -20,14 +20,24 @@ differ, so a test passes the same noise to both), and the modules and
 optimizers are updated in place. RUNTIME.PALLAS_AFFINE runs the generator's
 affine layers through ``ops/affine.py`` (kernels 1 and 2 for CUDA tensors)
 and RUNTIME.PALLAS_DAMSM the words loss through ``ops/damsm.py`` (kernels
-3-5); neither is gated on a backend. RUNTIME.REMAT, REMAT_BLOCKS (and
-REMAT_D with it) and REMAT_IMAGE_ENCODER are not ported: the step refuses
-them. The sampling step runs the generator in eval mode.
+3-5); neither is gated on a backend. RUNTIME.REMAT, REMAT_BLOCKS, REMAT_D
+and REMAT_IMAGE_ENCODER checkpoint the modules as the factory built them.
+The sampling step runs the generator in eval mode.
+
+With a ``mesh`` (``parallel/mesh.py``, one process per device) each rank
+takes its rows of the global batch and of the global noise, and the step
+computes the JAX step's global-batch math: the generator's batch norms sum
+their statistics over the ranks, the DAMSM losses contrast the whole batch,
+the gradients are averaged over the ranks before each of the three Adam
+updates (and before the D's clipping), and the metrics are averaged so
+that each rank returns the global batch's. The discriminators have no
+batch norm, so their phase needs only the gradient average. Without a mesh
+the step carries no collective.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,7 +48,9 @@ from eegan_tpu_torch.losses import damsm as damsm_losses
 from eegan_tpu_torch.losses import gan as gan_losses
 from eegan_tpu_torch.models.attr_enhance import AttrEnhance
 from eegan_tpu_torch.models.factory import ModelBundle
+from eegan_tpu_torch.models.layers import TorchBatchNorm
 from eegan_tpu_torch.ops.damsm import words_loss_fused
+from eegan_tpu_torch.parallel.mesh import Mesh, check_axes
 from eegan_tpu_torch.training.state import (
     FrozenEncoders,
     TrainState,
@@ -86,15 +98,7 @@ def encode_text_bundle(frozen: FrozenEncoders, config: Config, batch: Batch,
 
 
 def _check_runtime(config: Config, ablate) -> None:
-    rt = config.RUNTIME
-    unported = [k for k, on in (("REMAT", rt.REMAT),
-                                ("REMAT_BLOCKS", bool(rt.REMAT_BLOCKS)),
-                                ("REMAT_IMAGE_ENCODER",
-                                 rt.REMAT_IMAGE_ENCODER)) if on]
-    if unported:
-        raise NotImplementedError(
-            f"RUNTIME.{', RUNTIME.'.join(unported)} (activation "
-            "rematerialisation) is not ported to the PyTorch train step")
+    check_axes(config.RUNTIME.MESH)
     unknown = set(ablate) - ABLATE_KEYS
     if unknown:
         raise ValueError(f"unknown ablate keys {sorted(unknown)}")
@@ -123,7 +127,8 @@ def _gradient_penalty(disc, img, sent, is_class_scale: bool) -> torch.Tensor:
 
 
 def build_train_step_fn(config: Config, models: ModelBundle,
-                        ablate: frozenset = frozenset()
+                        ablate: frozenset = frozenset(),
+                        mesh: Optional[Mesh] = None
                         ) -> Callable[..., Tuple[TrainState, Dict]]:
     """-> ``train_step(state, frozen, batch, noise) -> (state, metrics)``.
 
@@ -131,9 +136,16 @@ def build_train_step_fn(config: Config, models: ModelBundle,
     tensors; images NHWC float32 in [-1, 1], or uint8). ``noise``:
     (B, Z_DIM). ``metrics``: 0-d float32 tensors on the device, the JAX
     step's keys. ``ablate`` removes a phase for measurements only (the keys
-    of the JAX step: text, damsm, words, magp, dsteps, dcond).
+    of the JAX step: text, damsm, words, magp, dsteps, dcond). With a
+    ``mesh``, ``batch`` and ``noise`` are this rank's rows of the global
+    ones (:meth:`Mesh.shard_batch`) and ``metrics`` the global batch's; the
+    generator's batch norms are bound to the mesh.
     """
     _check_runtime(config, ablate)
+    if mesh is not None:
+        for m in models.generator.modules():
+            if isinstance(m, TorchBatchNorm):
+                m.mesh = mesh
     n_scales = len(models.scales)
     rt, tr = config.RUNTIME, config.TRAIN
     use_class, class_coe = tr.USE_CLASS, tr.CLASS_COE
@@ -187,6 +199,8 @@ def build_train_step_fn(config: Config, models: ModelBundle,
                            unpair_class=err_unpair_c)
         loss.backward()
         _zero_missing_grads(params)
+        if mesh is not None:
+            mesh.average_gradients_(params)
         if tr.D_GRAD_CLIP > 0:
             clip_by_global_norm_(params, tr.D_GRAD_CLIP)
         opt.step()
@@ -209,6 +223,8 @@ def build_train_step_fn(config: Config, models: ModelBundle,
             gps.append(gp_c.detach())
         # The class head is off the penalty's path.
         _zero_missing_grads(params)
+        if mesh is not None:
+            mesh.average_gradients_(params)
         if tr.D_GRAD_CLIP > 0:
             clip_by_global_norm_(params, tr.D_GRAD_CLIP)
         opt.step()
@@ -246,18 +262,19 @@ def build_train_step_fn(config: Config, models: ModelBundle,
             class_ids = batch["class_ids"]
             if need_s:
                 s0, s1 = damsm_losses.sent_loss(code, sent, class_ids,
-                                                sm.GAMMA3)
+                                                sm.GAMMA3, mesh=mesh)
                 s_loss = (s0 + s1) * sm.LAMBDA * tr.SENT_COE
             if need_w:
                 words_loss = (words_loss_fused if rt.PALLAS_DAMSM
                               else damsm_losses.words_loss)
                 w0, w1 = words_loss(region, words, batch["cap_lens"],
                                     class_ids, sm.GAMMA1, sm.GAMMA2,
-                                    sm.GAMMA3)
+                                    sm.GAMMA3, mesh=mesh)
                 w_loss = (w0 + w1) * sm.LAMBDA * tr.WORDS_COE
             if need_a:
                 a0, a1 = damsm_losses.sent_loss(code, merged.float(),
-                                                class_ids, sm.GAMMA3)
+                                                class_ids, sm.GAMMA3,
+                                                mesh=mesh)
                 a_loss = (a0 + a1) * sm.LAMBDA * tr.ATTR_COE
         total = total + tr.SIM_COE * (s_loss + w_loss + a_loss)
         aux.update({"errG/s_loss": s_loss, "errG/w_loss": w_loss,
@@ -321,8 +338,12 @@ def build_train_step_fn(config: Config, models: ModelBundle,
                                        class_labels)
         total.backward(inputs=params)
         _zero_missing_grads(params)
+        if mesh is not None:
+            mesh.average_gradients_(params)
         state.g_opt.step()
         metrics.update({k: v.detach() for k, v in g_aux.items()})
+        if mesh is not None:
+            metrics = dict(zip(metrics, mesh.average(list(metrics.values()))))
 
         decay = tr.G_EMA_DECAY
         if decay > 0:
@@ -338,17 +359,19 @@ def build_train_step_fn(config: Config, models: ModelBundle,
 
 
 def make_train_step(config: Config, models: ModelBundle,
-                    ablate: frozenset = frozenset()):
+                    ablate: frozenset = frozenset(),
+                    mesh: Optional[Mesh] = None):
     """The train step, ``(state, frozen, batch, noise) -> (state,
     metrics)``; PyTorch runs it eagerly, so there is nothing to compile."""
-    return build_train_step_fn(config, models, ablate=ablate)
+    return build_train_step_fn(config, models, ablate=ablate, mesh=mesh)
 
 
-def make_multi_train_step(config: Config, models: ModelBundle):
+def make_multi_train_step(config: Config, models: ModelBundle,
+                          mesh: Optional[Mesh] = None):
     """K train steps per call: ``(state, frozen, stacked_batch, noises) ->
     (state, metrics)`` with batch leaves (K, B, ...), noises (K, B, Z_DIM)
     and metrics stacked to (K,). The same step, K times in order."""
-    train_step = build_train_step_fn(config, models)
+    train_step = build_train_step_fn(config, models, mesh=mesh)
 
     def multi_step(state, frozen, stacked_batch, noises):
         k = len(noises)

@@ -19,8 +19,15 @@
   saved generator snapshot is scored (FID / R-precision) on a background
   thread while training goes on.
 
-One device: the JAX package's meshes and FSDP are not ported
-(RUNTIME.MESH is ignored; ``train.py`` refuses the flags).
+With a ``mesh`` (``parallel/mesh.py``; ``train.py --mesh data:N`` or
+``--distributed`` starts one process per device), TRAIN.BATCH_SIZE stays
+the global batch and must divide by the ranks; each rank loads its rows
+(``DataPipeline(process_index, process_count)``), takes its rows of the
+iteration's global noise and runs the mesh step, whose math is the global
+batch's. Every rank loads a resume; rank 0 alone writes checkpoints,
+``metrics.jsonl``, images and traces, and runs the fixed-batch sampling
+(the global batch, eval-mode batch norm) and the overlapped evaluation.
+FSDP is not ported.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from eegan_tpu_torch.data.pipeline import (
     group_batches,
 )
 from eegan_tpu_torch.models.factory import build_models
+from eegan_tpu_torch.parallel.mesh import Mesh
 from eegan_tpu_torch.training.checkpoint import (
     FROZEN_DIR,
     CheckpointManager,
@@ -152,16 +160,23 @@ def ema_weights(state: TrainState):
 class Trainer:
     def __init__(self, config: Config, output_dir: str, dataset=None,
                  seed: int = 3407, data_workers: Optional[int] = None,
-                 device="cuda", async_eval=None):
-        self.device = resolve_device(device)
+                 device="cuda", async_eval=None, mesh: Optional[Mesh] = None):
+        self.mesh = mesh
+        self.device = resolve_device(mesh.device if mesh else device)
+        self.is_main = mesh is None or mesh.rank == 0
         self.config = config
         self.output_dir = output_dir
         self.model_dir = os.path.join(output_dir, "Model")
         self.image_dir = os.path.join(output_dir, "Image")
-        mkdir_p(self.image_dir)
-        mkdir_p(self.model_dir)
+        if self.is_main:
+            mkdir_p(self.image_dir)
+            mkdir_p(self.model_dir)
         self.seed = seed
         self.batch_size = config.TRAIN.BATCH_SIZE
+        ranks = mesh.size if mesh else 1
+        if self.batch_size % ranks:
+            raise ValueError(f"batch size {self.batch_size} not divisible "
+                             f"by {ranks} ranks")
 
         # ---- data ----------------------------------------------------
         if dataset is None:
@@ -176,8 +191,9 @@ class Trainer:
         self.ixtoword = dataset.ixtoword
         workers = (config.RUNTIME.DATA_WORKERS
                    if data_workers is None else data_workers)
-        self.pipeline = DataPipeline(dataset, self.batch_size, seed=seed,
-                                     num_workers=workers)
+        self.pipeline = DataPipeline(
+            dataset, self.batch_size, seed=seed, num_workers=workers,
+            process_index=mesh.rank if mesh else 0, process_count=ranks)
 
         # ---- models / state -----------------------------------------
         # The initial weights follow from the seed (drawn on the CPU)
@@ -187,15 +203,17 @@ class Trainer:
             self.models = build_models(config, self.n_words, self.device)
         self.state, init_frozen = create_train_state(config, self.models)
         self.frozen = load_frozen_encoders(config, init_frozen)
-        self.train_step = make_train_step(config, self.models)
+        self.train_step = make_train_step(config, self.models, mesh=mesh)
         self.steps_per_dispatch = max(1, config.RUNTIME.STEPS_PER_DISPATCH)
-        self.multi_train_step = (make_multi_train_step(config, self.models)
-                                 if self.steps_per_dispatch > 1 else None)
+        self.multi_train_step = (
+            make_multi_train_step(config, self.models, mesh=mesh)
+            if self.steps_per_dispatch > 1 else None)
         self.sample_step = make_sample_step(config, self.models)
 
         # ---- bookkeeping --------------------------------------------
         self.ckpt = CheckpointManager(self.model_dir)
-        self.writer = MetricWriter(os.path.join(output_dir, "writer"))
+        self.writer = (MetricWriter(os.path.join(output_dir, "writer"))
+                       if self.is_main else None)
         self.start_epoch = 1
         if self.ckpt.latest_epoch() is not None:
             self.state, epoch = self.ckpt.restore_state(self.state)
@@ -210,13 +228,17 @@ class Trainer:
         # Optional overlapped evaluation of each generator snapshot.
         self.async_eval = async_eval
 
-        self._sample_batch = self._prepare_sampling()
+        self._sample_batch = (self._prepare_sampling() if self.is_main
+                              else None)
 
     # ------------------------------------------------------------------
     def _prepare_sampling(self) -> Dict[str, np.ndarray]:
         """Fixed batch for per-epoch visualisation (reference
-        `prepare_sampling`, train.py:282-306)."""
-        batch = next(self.pipeline.epoch(0))
+        `prepare_sampling`, train.py:282-306): the first global batch of
+        epoch 0."""
+        pipeline = self.pipeline if self.mesh is None else DataPipeline(
+            self.dataset, self.batch_size, seed=self.seed)
+        batch = next(pipeline.epoch(0))
         save_text_results(
             batch["caps"], batch["cap_lens"], self.ixtoword,
             os.path.join(self.image_dir, "sampling_text.txt"),
@@ -227,11 +249,15 @@ class Trainer:
         return batch
 
     def step_noise(self, step: int, batch_size: int) -> torch.Tensor:
-        """(batch_size, Z_DIM) noise of iteration ``step``."""
+        """(batch_size, Z_DIM) noise of iteration ``step``; under a mesh,
+        ``batch_size`` is the local batch and the rows are this rank's of
+        the global batch's noise."""
         gen = torch.Generator(self.device).manual_seed(
             noise_seed(self.seed, step))
-        return torch.randn((batch_size, self.config.GAN.Z_DIM),
-                           generator=gen, device=self.device)
+        ranks = self.mesh.size if self.mesh else 1
+        noise = torch.randn((batch_size * ranks, self.config.GAN.Z_DIM),
+                            generator=gen, device=self.device)
+        return noise if self.mesh is None else self.mesh.rows(noise)
 
     def save_images(self, epoch: int) -> None:
         """Sample the fixed batch from the EMA generator (when on), with
@@ -249,6 +275,8 @@ class Trainer:
     def save_model(self, epoch: int) -> None:
         """Epoch-gated saving (reference `save_model`, train.py:308-319) +
         full-state checkpoint for resume."""
+        if not self.is_main:
+            return
         t = self.config.TRAIN
         if epoch == 1 or (epoch >= t.WARMUP_EPOCHS and epoch % t.GSAVE_INTERVAL == 0):
             self.ckpt.save_generator(epoch, self.state)
@@ -305,7 +333,7 @@ class Trainer:
                 src = group_batches(src, k)
             batches = self._timed(device_prefetch(src, self.device))
             for i, batch in enumerate(batches):
-                if steps_done == profile_at:
+                if steps_done == profile_at and self.is_main:
                     prof = start_trace()
                 step = self.state.step
                 if k > 1:
@@ -329,7 +357,7 @@ class Trainer:
                                                   "profile"))
                     prof = None
 
-                if i % log_every == 0:
+                if i % log_every == 0 and self.is_main:
                     # K-stacked metrics reduce by MEAN over the sub-steps
                     # (reference logs each UPDATE_INTERVAL,
                     # train.py:462-498), against the persistent step, so a
@@ -347,7 +375,13 @@ class Trainer:
                     wait_logged = (self.data_wait_s, self.data_waits)
                     self.writer.write_scalars(self.state.step, scalars)
 
-            self.save_images(epoch)
+            if self.is_main:
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                ips = self.timer.images_per_sec
+                if ips is not None:
+                    print(f"epoch {epoch}: {ips} images/s")
+                self.save_images(epoch)
             self.save_model(epoch)
         if prof is not None:
             stop_trace(prof, os.path.join(self.output_dir, "profile"))
@@ -356,4 +390,5 @@ class Trainer:
         if self.async_eval is not None:
             self.async_eval.close()
         self.pipeline.close()
-        self.writer.close()
+        if self.writer is not None:
+            self.writer.close()

@@ -54,9 +54,9 @@ B, N_WORDS, WIDTH, CLASS_NUM = 4, 40, 4, 10
 CLASS_IDS = np.array([1, 2, 1, 3], np.int32)
 
 
-def configs(dense_d: bool, magp_chunks: int, **train):
+def configs(dense_d: bool, magp_chunks: int, runtime=None, **train):
     """The same settings as the port's Config and the JAX package's
-    (``train``: TRAIN keys)."""
+    (``runtime``: more RUNTIME keys; ``train``: TRAIN keys)."""
     out = []
     for cfg in (Config(), JaxConfig()):
         cfg.GAN.GF_DIM = cfg.GAN.DF_DIM = WIDTH
@@ -65,6 +65,8 @@ def configs(dense_d: bool, magp_chunks: int, **train):
         cfg.RUNTIME.PALLAS_AFFINE = True
         cfg.RUNTIME.DENSE_D = dense_d
         cfg.RUNTIME.MAGP_CHUNKS = magp_chunks
+        for k, v in (runtime or {}).items():
+            setattr(cfg.RUNTIME, k, v)
         for k, v in train.items():
             setattr(cfg.TRAIN, k, v)
         out.append(cfg)
@@ -133,10 +135,10 @@ def shared_start(cfg, jcfg, seed=0):
 
 
 def run_both(dense_d, magp_chunks, uint8_images=False, ablate=frozenset(),
-             **train):
+             runtime=None, **train):
     """One step of each package from the same start; ``uint8_images``
     ships the image leaves as uint8 [0, 255] (RUNTIME.UINT8_TRANSFER)."""
-    cfg, jcfg = configs(dense_d, magp_chunks, **train)
+    cfg, jcfg = configs(dense_d, magp_chunks, runtime, **train)
     models, jm, jstate, jfrozen = shared_start(cfg, jcfg)
     batch = synthetic_batch(cfg, B, seed=3, n_words=N_WORDS)
     jbatch = jax_synthetic_batch(jcfg, B, seed=3, n_words=N_WORDS)

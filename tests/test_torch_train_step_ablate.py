@@ -72,9 +72,9 @@ def _calls(module):
 
 
 @pytest.mark.parametrize("runtime,ablate,error", [
-    (dict(REMAT=True), (), NotImplementedError),
-    (dict(REMAT_BLOCKS="1,2"), (), NotImplementedError),
-    (dict(REMAT_IMAGE_ENCODER=True), (), NotImplementedError),
+    (dict(MESH="data:2,fsdp:2"), (), NotImplementedError),
+    (dict(MESH="fsdp:-1"), (), NotImplementedError),
+    (dict(MESH="data:1,model:2"), (), NotImplementedError),
     (dict(), ("nope",), ValueError)])
 def test_unported_settings_are_refused(runtime, ablate, error):
     cfg, models, _, _ = _port(**runtime)
