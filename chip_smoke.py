@@ -124,7 +124,17 @@ Training at scale, run last (cfg/bird.yml, both kernel families on):
    1e-3, parameters and BN running stats at phase 10's bars) with the
    same kernel launches per rank; then ``python -m eegan_tpu_torch.train
    --distributed`` as one NCCL rank (EEGAN_NUM_PROCESSES=1) for a few
-   iterations on phase 14's corpus, with its images/s.
+   iterations on phase 14's corpus, with its images/s;
+19. FSDP: the same two gloo ranks at ``data:1,fsdp:2`` (the large
+   parameters, their Adam moments and EMA sharded over the ranks) take
+   one step from phase 18's weights, batch and noise, held against the
+   single-process step at phase 18's bars and against phase 18's data:2
+   ranks (metrics within 1e-6 relative, Adam moments within 1e-5 relative
+   L2, parameters and BN stats within 1e-6 but for at most 0.01% of each
+   module's entries), with the same kernel launches per rank, beside a
+   second run of the data:2 ranks (the card's own spread); each rank's
+   state at rest (``torch.cuda.memory_allocated`` and the state's own
+   bytes, sharded and replicated leaves) against a data:2 rank's.
 
 The last lines are one JSON ``kernels`` line, the card's name and power
 limit as nvidia-smi prints them, and ``{"ok": true, "device": {...}}``;
@@ -1307,10 +1317,10 @@ def phase_trainer(tmp: str):
     trainer.save_images = save_images_at_epoch_end
     save_state = trainer.ckpt.save_state
 
-    def timed_save_state(epoch, state):
+    def timed_save_state(epoch, state, full=None):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        path = save_state(epoch, state)
+        path = save_state(epoch, state, full)
         saves.append(dict(s=time.perf_counter() - t,
                           bytes=os.path.getsize(path)))
         return path
@@ -2250,6 +2260,7 @@ SAGB_BLOCKS = 7
 MESH_RANKS = 2
 MESH_BATCH = 8  # global; 4 per rank
 NCCL_ITERS = 8
+FSDP = 2  # phase 19: data:1,fsdp:2 on phase 18's two gloo ranks
 
 
 def moment_gaps(got, want):
@@ -2387,14 +2398,63 @@ def phase_remat():
                 launches_plain=runs["off"]["counts"], times=times)
 
 
-def _mesh_rank(rank: int, port: int, in_path: str, out_path: str) -> None:
-    """Rank ``rank`` of phase 18's two gloo ranks on one card."""
+def state_bytes(state, fsdp: int):
+    """What the train state holds on this rank at rest, in bytes, split by
+    whether ``fsdp_spec`` shards a leaf over an fsdp axis of ``fsdp``: each
+    parameter (under FSDP the rank's slice of a sharded one) with its Adam
+    moments and EMA copy; the modules' buffers count as replicated. Also
+    the number of leaves the rule shards and their share of the
+    parameters' elements."""
+    from eegan_tpu_torch.parallel.fsdp import fsdp_spec
+    from eegan_tpu_torch.training.state import trained_tensors
+
+    out = dict(sharded=0, replicated=0, sharded_leaves=0, leaves=0)
+    elems = [0, 0]
+    emas = {id(state.generator): state.g_ema,
+            id(state.attr_enhance): state.attr_ema}
+    for opt, modules in ((state.g_opt, (state.generator, state.attr_enhance)),
+                         *((o, (d,)) for o, d in zip(state.d_opts,
+                                                     state.discriminators))):
+        for module in modules:
+            shapes = ([tuple(p.shape) for p in module.parameters()]
+                      if state.shards is None else
+                      next(m.shapes for m in state.shards.modules()
+                           if m.module is module))
+            ema = emas.get(id(module))
+            for (name, t), shape in zip(trained_tensors(module, state.shards),
+                                        shapes):
+                held = [t, *(v for k, v in opt.state[t].items()
+                             if k in ("exp_avg", "exp_avg_sq")),
+                        *([] if ema is None else [ema[name]])]
+                n = sum(x.numel() * x.element_size() for x in held)
+                full = math.prod(shape)
+                sharded = fsdp_spec(shape, fsdp) is not None
+                out["sharded" if sharded else "replicated"] += n
+                out["sharded_leaves"] += sharded
+                out["leaves"] += 1
+                elems[0] += full if sharded else 0
+                elems[1] += full
+            out["replicated"] += sum(b.numel() * b.element_size()
+                                     for b in module.buffers())
+    out["total"] = out["sharded"] + out["replicated"]
+    out["sharded_element_share"] = elems[0] / elems[1]
+    return out
+
+
+def _mesh_rank(rank: int, port: int, in_path: str, out_path: str,
+               fsdp: int = 1) -> None:
+    """Rank ``rank`` of phase 18's two gloo ranks on one card (phase 19:
+    with an fsdp axis of ``fsdp``). Saves the metrics, the launches, the
+    state in the unsharded layout and what the state holds at rest."""
     import torch
 
     sys.path.insert(0, ROOT)
     from eegan_tpu_torch.parallel import distributed
     from eegan_tpu_torch.parallel.mesh import Mesh
-    from eegan_tpu_torch.training.state import create_train_state
+    from eegan_tpu_torch.training.state import (
+        create_train_state,
+        full_state_dict,
+    )
     from eegan_tpu_torch.training.steps import make_train_step
 
     torch.backends.cudnn.allow_tf32 = False
@@ -2405,20 +2465,37 @@ def _mesh_rank(rank: int, port: int, in_path: str, out_path: str) -> None:
         inputs = torch.load(in_path, weights_only=False)
         config = bird_config("float32")
         models, mods = train_models(config, "cuda", inputs["weights"])
-        mesh = Mesh.current("cuda:0")
-        state, frozen = create_train_state(config, models)
+        mesh = Mesh.current("cuda:0", fsdp=fsdp)
+        state, frozen = create_train_state(config, models, mesh)
         step = make_train_step(config, models, mesh=mesh)
         zero_counts()
         state, metrics = step(state, frozen, mesh.shard_batch(inputs["batch"]),
                               mesh.rows(inputs["noise"]))
         torch.cuda.synchronize()
+        counts = read_counts()
+        metrics = {k: float(v) for k, v in metrics.items()}
+        # At rest: no gradients, nothing of the step alive.
+        for opt in (state.g_opt, *state.d_opts):
+            opt.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        at_rest = dict(memory_allocated=torch.cuda.memory_allocated(),
+                       **state_bytes(state, FSDP))
+        full = full_state_dict(state)
+        sds = {"generator": full["generator"],
+               "attr_enhance": full["attr_enhance"],
+               **{f"disc_{i}": sd
+                  for i, sd in enumerate(full["discriminators"])}}
+        moments = {(name, int(j), key): v
+                   for name, sd in (("g", full["g_opt"]),
+                                    *((f"d{i}", o) for i, o in
+                                      enumerate(full["d_opts"])))
+                   for j, slot in sd["state"].items()
+                   for key, v in slot.items()}
         torch.save(dict(
-            counts=read_counts(),
-            metrics={k: float(v) for k, v in metrics.items()},
-            sds={k: {n: v.cpu() for n, v in m.state_dict().items()}
-                 for k, m in mods.items()},
-            moments={k: v.cpu() for k, v in
-                     optimizer_moments(state).items()}),
+            counts=counts, metrics=metrics, at_rest=at_rest,
+            sds={k: {n: v.cpu() for n, v in sd.items()}
+                 for k, sd in sds.items()},
+            moments={k: v.cpu() for k, v in moments.items()}),
             f"{out_path}.{rank}")
     finally:
         distributed.shutdown()
@@ -2481,7 +2558,8 @@ def phase_mesh_step(tmp: str):
             fail(f"{what}: params out of bounds in {bad}: {param_err}")
         result[f"rank{r}"] = dict(metric_max_abs_err=max(metric_err.values()),
                                   moments=moments, params=param_err,
-                                  launches=got["counts"])
+                                  launches=got["counts"],
+                                  at_rest=got["at_rest"])
     local = MESH_BATCH // MESH_RANKS
     for r, got in enumerate(ranks):
         if got["counts"] != single_counts:
@@ -2492,6 +2570,146 @@ def phase_mesh_step(tmp: str):
         f"the single-process step at B={MESH_BATCH}: "
         f"{ {r: result[f'rank{r}']['moments'] for r in range(MESH_RANKS)} }; "
         f"launches per rank {ranks[0]['counts']}; {ranks_s:.1f} s")
+    return result, dict(in_path=in_path, want=want, ranks=ranks,
+                        single_counts=single_counts, config=config)
+
+
+# Phase 19 holds the FSDP ranks against the data:2 ranks at bars that the
+# card's own run-to-run spread of the data:2 step meets with room (two runs
+# of the same code differ there: the generator's bilinear mask resize has
+# an atomicAdd backward; a rerun's G moments lay 1.11e-6 relative L2 from
+# the first run's, PERF.md §6): metrics within 1e-6 relative, each
+# optimizer's Adam moments within FSDP_MOMENTS_L2 relative L2, and every
+# parameter and BN stat within 1e-6 but for at most FSDP_OFF_SHARE of each
+# module's entries (Adam's first step turns a rounding of a near-zero
+# gradient into up to 2 lr). A stale gather or a missed average moves
+# moments by per cents and whole modules by about lr.
+FSDP_MOMENTS_L2 = 1e-5
+FSDP_OFF_SHARE = 1e-4
+
+
+def rank_gaps(got, want):
+    """Two ranks' results apart: each metric's relative gap, each
+    optimizer moment's relative L2 distance, and per module the largest
+    |gap| of its state-dict entries and how many lie beyond 1e-6."""
+    import torch
+
+    if set(got["metrics"]) != set(want["metrics"]) \
+            or set(got["moments"]) != set(want["moments"]):
+        fail("two ranks hold different metrics or moments")
+    metrics = max(abs(got["metrics"][k] - v) / (1 + abs(v))
+                  for k, v in want["metrics"].items())
+    modules = {}
+    for name, sd in want["sds"].items():
+        if set(got["sds"][name]) != set(sd):
+            fail(f"{name}: the two ranks' state dicts have different keys")
+        worst, off, n = 0.0, 0, 0
+        for k, v in sd.items():
+            a = got["sds"][name][k]
+            if a.shape != v.shape:
+                fail(f"{name}.{k}: shapes {tuple(a.shape)} and "
+                     f"{tuple(v.shape)}")
+            err = (a.double() - v.double()).abs()
+            worst = max(worst, float(err.max()))
+            off += int((err > 1e-6).sum())
+            n += err.numel()
+        modules[name] = dict(max_abs=worst, off_1e6=off, n=n)
+    return dict(metrics_rel=metrics,
+                moments_rel_l2=moment_gaps(got["moments"], want["moments"]),
+                modules=modules)
+
+
+def spawn_ranks(port, in_path, out_path, fsdp):
+    """Phase 18's two gloo ranks, started without waiting."""
+    import torch.multiprocessing as mp
+
+    return mp.start_processes(_mesh_rank, args=(port, in_path, out_path,
+                                                fsdp),
+                              nprocs=MESH_RANKS, join=False,
+                              start_method="spawn")
+
+
+def phase_fsdp_step(tmp: str, ctx):
+    """(19) FSDP: phase 18's two gloo ranks on the one card at
+    data:1,fsdp:2 (float32, TF32 off, global B=8), one step from phase
+    18's weights, batch and noise: against the single-process step at
+    phase 18's bars, against phase 18's data:2 ranks at the bars above,
+    with the single-process step's launches per rank; beside it, the
+    data:2 ranks once more, whose distance to phase 18's is the card's own
+    spread. The state each rank holds at rest (``memory_allocated`` and
+    the state's own bytes) against a data:2 rank's."""
+    import torch
+
+    outs = {k: os.path.join(tmp, f"{k}_out") for k in ("fsdp", "again")}
+    t0 = time.perf_counter()
+    groups = [spawn_ranks(_free_port(), ctx["in_path"], outs["fsdp"], FSDP),
+              spawn_ranks(_free_port(), ctx["in_path"], outs["again"], 1)]
+    for group in groups:
+        while not group.join():
+            pass
+    ranks_s = time.perf_counter() - t0
+    ranks, again = ([torch.load(f"{outs[k]}.{r}", weights_only=False)
+                     for r in range(MESH_RANKS)] for k in ("fsdp", "again"))
+    want, config = ctx["want"], ctx["config"]
+    result = dict(mesh=f"data:{MESH_RANKS // FSDP},fsdp:{FSDP}",
+                  batch=MESH_BATCH, ranks=MESH_RANKS, backend="gloo",
+                  ranks_s=ranks_s, with_data_parallel_rerun=True)
+    for r, got in enumerate(ranks):
+        what = f"FSDP rank {r} vs the single-process step"
+        metric_err = metric_errors(got["metrics"], want["metrics"], what)
+        moments = moment_gaps(got["moments"], want["moments"])
+        if max(moments.values()) > 1e-3:
+            fail(f"{what}: Adam moments {moments}")
+        param_err, bad = adam_param_errors(config, got["sds"], want["sds"])
+        if bad:
+            fail(f"{what}: params out of bounds in {bad}: {param_err}")
+        dp = ctx["ranks"][r]
+        gaps = rank_gaps(got, dp)
+        spread = rank_gaps(again[r], dp)
+        if gaps["metrics_rel"] > 1e-6 \
+                or max(gaps["moments_rel_l2"].values()) > FSDP_MOMENTS_L2 \
+                or any(m["off_1e6"] > FSDP_OFF_SHARE * m["n"]
+                       for m in gaps["modules"].values()):
+            fail(f"FSDP rank {r} vs data:2 rank {r}: {gaps} (the data:2 "
+                 f"rerun: {spread})")
+        if got["counts"] != ctx["single_counts"]:
+            fail(f"FSDP rank {r} launches {got['counts']}, the "
+                 f"single-process step {ctx['single_counts']}")
+        rest, dp_rest = got["at_rest"], dp["at_rest"]
+        if rest["sharded"] * FSDP != dp_rest["sharded"] \
+                or rest["replicated"] != dp_rest["replicated"]:
+            fail(f"FSDP rank {r} at rest {rest}, data:2 rank {dp_rest}: "
+                 f"the sharded leaves should hold 1/{FSDP}")
+        result[f"rank{r}"] = dict(
+            metric_max_abs_err=max(metric_err.values()), moments=moments,
+            params=param_err, gap_to_data_parallel=gaps,
+            data_parallel_rerun_gap=spread, launches=got["counts"],
+            at_rest=rest, data_parallel_at_rest=dp_rest,
+            state_bytes_ratio=rest["total"] / dp_rest["total"],
+            memory_allocated_ratio=(rest["memory_allocated"]
+                                    / dp_rest["memory_allocated"]))
+    r0 = result["rank0"]
+
+    def summary(g):
+        return dict(metrics_rel=g["metrics_rel"],
+                    moments_rel_l2=max(g["moments_rel_l2"].values()),
+                    max_abs=max(m["max_abs"] for m in g["modules"].values()),
+                    off_1e6=sum(m["off_1e6"] for m in g["modules"].values()))
+
+    log(f"phase 19 fsdp ok: {result['mesh']} on one card (gloo) matches the "
+        f"single-process step at B={MESH_BATCH} (moments "
+        f"{ {r: result[f'rank{r}']['moments'] for r in range(MESH_RANKS)} })"
+        f" and the data:2 ranks: {summary(r0['gap_to_data_parallel'])}, "
+        f"where a data:2 rerun lies {summary(r0['data_parallel_rerun_gap'])}"
+        f"; launches per rank {r0['launches']}; state at rest per rank "
+        f"{r0['at_rest']['total']} bytes against "
+        f"{r0['data_parallel_at_rest']['total']} "
+        f"({r0['state_bytes_ratio']:.4f}x; {r0['at_rest']['sharded_leaves']}"
+        f" of {r0['at_rest']['leaves']} leaves sharded, "
+        f"{r0['at_rest']['sharded_element_share']:.4f} of the elements), "
+        f"memory_allocated {r0['at_rest']['memory_allocated']} against "
+        f"{r0['data_parallel_at_rest']['memory_allocated']} "
+        f"({r0['memory_allocated_ratio']:.4f}x); both groups {ranks_s:.1f} s")
     return result
 
 
@@ -2583,10 +2801,13 @@ def main() -> None:
         evaluation = phase_eval(os.path.join(tmp, "trainer"))
         damsm_parity = phase_damsm_parity()
         remat = phase_remat()
-        mesh = dict(step=phase_mesh_step(tmp),
+        mesh_step, mesh_ctx = phase_mesh_step(tmp)
+        mesh = dict(step=mesh_step,
                     nccl_cli=phase_nccl_cli(
                         os.path.join(tmp, "nccl"),
                         os.path.join(tmp, "trainer", "data")))
+        fsdp = phase_fsdp_step(tmp, mesh_ctx)
+        del mesh_ctx
 
     card = {"gpu": name, "nvidia_smi": smi}
     step_line = {"sample_step": {
@@ -2612,6 +2833,7 @@ def main() -> None:
                "damsm": damsm_rows, **step_line, **train_line,
                **trainer_line, "clis": clis, "damsm_step_parity": damsm_parity,
                "evaluation": evaluation, "remat": remat, "mesh": mesh,
+               "fsdp": fsdp,
                "breakdown": breakdown, "train_breakdown": train_breakdown,
                "bf16_train_metrics": bf16_train["metrics"],
                "checks": {"affine_max_abs_err": {"float32": err_f32,
@@ -2639,6 +2861,14 @@ def main() -> None:
                              "moments": {r: mesh["step"][f"rank{r}"]["moments"]
                                          for r in range(MESH_RANKS)},
                              "nccl_cli": mesh["nccl_cli"]}, **card}))
+    log(json.dumps({"fsdp": {
+        "mesh": fsdp["mesh"], "batch": fsdp["batch"],
+        "ranks_s": fsdp["ranks_s"],
+        **{f"rank{r}": {k: fsdp[f"rank{r}"][k] for k in (
+            "moments", "gap_to_data_parallel", "data_parallel_rerun_gap",
+            "at_rest", "data_parallel_at_rest", "state_bytes_ratio",
+            "memory_allocated_ratio")} for r in range(MESH_RANKS)}},
+        **card}))
     for key, value in (("breakdown", breakdown),
                        ("train_breakdown", train_breakdown)):
         log(json.dumps({key: {k: v for k, v in value.items()
@@ -2708,6 +2938,8 @@ def main() -> None:
         row["launches_remat_step"] = remat["launches"][row["name"]]
         row["launches_mesh_rank_step"] = \
             mesh["step"]["rank0"]["launches"][row["name"]]
+        row["launches_fsdp_rank_step"] = \
+            fsdp["rank0"]["launches"][row["name"]]
     log(json.dumps(kernels))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -32,13 +32,19 @@ from eegan_tpu_torch.models.factory import ModelBundle
 Tensors = Dict[str, torch.Tensor]
 
 
-def eval_bundle(models: ModelBundle) -> ModelBundle:
+def eval_bundle(models: ModelBundle, shards=None) -> ModelBundle:
     """The bundle an AsyncEvaluator's Tester runs: copies of the generator
     and AttrEnhance (each snapshot is loaded into them, never into the
-    modules that train) beside the same frozen encoders."""
-    return dataclasses.replace(
-        models, generator=copy.deepcopy(models.generator),
-        attr_enhance=copy.deepcopy(models.attr_enhance))
+    modules that train) beside the same frozen encoders. Under FSDP
+    (``shards``: the train state's ``FsdpShards``, whose modules are
+    empty at rest) the copies get full-size parameters."""
+    if shards is None:
+        gen, attr = (copy.deepcopy(models.generator),
+                     copy.deepcopy(models.attr_enhance))
+    else:
+        gen, attr = (shards.generator.unsharded_copy(),
+                     shards.attr_enhance.unsharded_copy())
+    return dataclasses.replace(models, generator=gen, attr_enhance=attr)
 
 
 class AsyncEvaluator:

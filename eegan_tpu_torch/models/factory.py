@@ -9,7 +9,9 @@ gated on the backend: the ops dispatch on the tensors' device themselves
 (CUDA tensors launch the kernels, CPU tensors take the plain versions).
 RUNTIME.REMAT (with REMAT_BLOCKS), REMAT_D and REMAT_IMAGE_ENCODER are
 wired as ``eegan_tpu/models/factory.py:54-70`` wires them. RUNTIME.S2D_CONVS
-is a TPU lane-packing lowering of the same math and is ignored.
+is a TPU lane-packing lowering of the same math and is ignored
+(``tests/test_torch_s2d_key.py`` holds the port against the JAX package's
+S2D networks).
 """
 
 from __future__ import annotations

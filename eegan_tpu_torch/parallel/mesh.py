@@ -24,8 +24,14 @@ the same math by hand:
   ranks.
 
 The spec string is the JAX package's (``"data:8"``, ``"data:-1"`` for every
-visible device). Only the ``data`` axis is ported: an ``fsdp`` axis (or any
-other) larger than 1 raises ``NotImplementedError``.
+visible device, ``"data:4,fsdp:2"``). ``data:D,fsdp:F`` asks for D·F ranks,
+laid out as the JAX package's ``make_mesh`` reshapes its devices: rank
+d·F + f. The batch is split over all D·F ranks, so every rank still does
+data-parallel work (the JAX package's ``batch_axes``), and each run of F
+consecutive ranks is an fsdp group, over which ``parallel/fsdp.py`` shards
+the train state. Any other axis larger than 1, or an fsdp axis written
+before the data axis (another rank layout), raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -71,37 +77,43 @@ def parse_mesh_spec(spec: str, n_devices: int
 
 
 def check_axes(spec: str) -> None:
-    """Refuse a spec with an axis other than ``data`` that is not of size
-    1 (``-1`` included): the port's parallelism is data-parallel only."""
+    """Refuse a spec with an axis other than ``data`` and ``fsdp`` that is
+    not of size 1 (``-1`` included), and an fsdp axis larger than 1 written
+    before the data axis."""
+    names = []
     for part in filter(None, (p.strip() for p in spec.split(","))):
         name, _, size_s = part.partition(":")
         name = name.strip()
         size = int(size_s) if size_s else -1
-        if name == DATA_AXIS or size == 1:
+        if name in (DATA_AXIS, FSDP_AXIS) or size == 1:
+            names.append(name)
             continue
-        if name == FSDP_AXIS:
-            raise NotImplementedError(
-                f"mesh spec {spec!r}: FSDP (an fsdp axis larger than 1) is "
-                "not ported; see ROADMAP.md Queue 1 (FSDP)")
         raise NotImplementedError(
-            f"mesh spec {spec!r}: axis {name!r} is not ported (only the "
-            "data axis; see ROADMAP.md Queue 1)")
+            f"mesh spec {spec!r}: axis {name!r} is not ported (the port's "
+            "parallelism is the data and fsdp axes)")
+    if FSDP_AXIS in names and DATA_AXIS in names \
+            and names.index(FSDP_AXIS) < names.index(DATA_AXIS):
+        raise NotImplementedError(
+            f"mesh spec {spec!r}: an fsdp axis before the data axis is not "
+            "ported (the port lays ranks out data-major, rank d*F + f)")
 
 
-def data_axis_size(spec: str, n_devices: Optional[int]) -> int:
-    """The number of ranks a spec asks for: its ``data`` axis. ``-1`` takes
-    every one of ``n_devices`` (1 where that is None, the CPU). Raises for a
-    spec that needs more devices than ``n_devices`` (it never shrinks) and
-    for an axis that is not ported (:func:`check_axes`)."""
+def mesh_shape(spec: str, n_devices: Optional[int]) -> Tuple[int, int]:
+    """(D, F): the sizes of the spec's ``data`` and ``fsdp`` axes (1 where
+    absent); the spec asks for D·F ranks. ``-1`` takes every one of
+    ``n_devices`` (1 where that is None, the CPU). Raises for a spec that
+    needs more devices than ``n_devices`` (it never shrinks) and for an
+    axis that is not ported (:func:`check_axes`)."""
     check_axes(spec)
     names, sizes = parse_mesh_spec(spec, n_devices or 1)
-    size = sizes[names.index(DATA_AXIS)] if DATA_AXIS in names else 1
-    if size < 1:
-        raise ValueError(f"mesh spec {spec!r}: data axis of size {size}")
-    if n_devices is not None and size > n_devices:
-        raise ValueError(f"mesh spec {spec!r} needs {size} devices, have "
-                         f"{n_devices}")
-    return size
+    axes = dict(zip(names, sizes))
+    data, fsdp = axes.get(DATA_AXIS, 1), axes.get(FSDP_AXIS, 1)
+    if data < 1 or fsdp < 1:
+        raise ValueError(f"mesh spec {spec!r}: axes of sizes {sizes}")
+    if n_devices is not None and data * fsdp > n_devices:
+        raise ValueError(f"mesh spec {spec!r} needs {data * fsdp} devices, "
+                         f"have {n_devices}")
+    return data, fsdp
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -138,23 +150,49 @@ class _AllGather(torch.autograd.Function):
 
 
 class Mesh:
-    """The data-parallel group as one process sees it: ``size`` ranks, this
-    one's ``rank``, the ``device`` it computes on and the process
-    ``group`` (None: the default group)."""
+    """The group as one process sees it: ``size`` ranks, this one's
+    ``rank``, the ``device`` it computes on and the process ``group``
+    (None: the default group). The batch is split over all ``size`` ranks.
+    With ``fsdp`` > 1 the ranks form ``size // fsdp`` fsdp groups of
+    ``fsdp`` consecutive ranks; ``fsdp_group`` is this rank's (a process
+    group over those ranks) and ``fsdp_index`` its place in it."""
 
-    def __init__(self, size: int, rank: int, device, group=None):
+    def __init__(self, size: int, rank: int, device, group=None,
+                 fsdp: int = 1, fsdp_group=None):
         if not 0 <= rank < size:
             raise ValueError(f"rank {rank} outside a mesh of {size}")
+        if fsdp < 1 or size % fsdp:
+            raise ValueError(f"an fsdp axis of {fsdp} does not divide "
+                             f"{size} ranks")
         self.size = size
         self.rank = rank
         self.device = torch.device(device)
         self.group = group
+        self.fsdp = fsdp
+        self.fsdp_index = rank % fsdp
+        self.fsdp_group = fsdp_group
+
+    def fsdp_ranks(self, rank: Optional[int] = None) -> List[int]:
+        """The ranks of ``rank``'s fsdp group (default: this rank's)."""
+        first = (self.rank if rank is None else rank) // self.fsdp * self.fsdp
+        return list(range(first, first + self.fsdp))
 
     @classmethod
-    def current(cls, device, group=None) -> "Mesh":
-        """The mesh of the process group this process has joined."""
-        return cls(dist.get_world_size(group), dist.get_rank(group), device,
-                   group)
+    def current(cls, device, group=None, fsdp: int = 1) -> "Mesh":
+        """The mesh of the process group this process has joined; with
+        ``fsdp`` > 1 every rank creates every fsdp group, in the same
+        order, as ``dist.new_group`` requires."""
+        size, rank = dist.get_world_size(group), dist.get_rank(group)
+        mesh = cls(size, rank, device, group, fsdp)
+        if fsdp > 1:
+            ranks = (dist.get_process_group_ranks(group) if group is not None
+                     else list(range(size)))
+            for first in range(0, size, fsdp):
+                members = mesh.fsdp_ranks(first)
+                sub = dist.new_group([ranks[r] for r in members])
+                if rank in members:
+                    mesh.fsdp_group = sub
+        return mesh
 
     def __deepcopy__(self, memo):
         # A module copy (the evaluator's) shares the group, not a copy.

@@ -7,14 +7,15 @@ Keeps ``train.py``'s flags (reference `train.py:37-56` plus --dtype,
 --synthetic, --max_epochs, --max_iters, --profile_steps) and adds --device
 (``cuda`` by default; the CPU only with ``--device cpu``). --gpu is
 accepted and ignored, as in the JAX CLI. --mesh (default RUNTIME.MESH,
-``data:-1``: every visible GPU) with a data axis of N > 1 starts N
-processes on this host, one per GPU (N CPU processes with ``--device
-cpu``), joined by gloo or NCCL through a local coordinator; --batch_size
-stays the global batch. --distributed makes this process one rank of a
-group the environment describes (``parallel/distributed.py``); the ranks
-span the mesh's data axis. An fsdp axis (FSDP, ROADMAP.md Queue 1) or any
-other axis beyond 1 raises ``NotImplementedError``, and a data axis beyond
-the visible GPUs raises. --profile_steps writes a ``torch.profiler`` trace to
+``data:-1``: every visible GPU) of N > 1 ranks (``data:N``, or
+``data:D,fsdp:F`` for N = D·F, the train state sharded over each F
+consecutive ranks) starts N processes on this host, one per GPU (N CPU
+processes with ``--device cpu``), joined by gloo or NCCL through a local
+coordinator; --batch_size stays the global batch, split over all N ranks.
+--distributed makes this process one rank of a group the environment
+describes (``parallel/distributed.py``); the ranks span the mesh's data
+and fsdp axes. Any other axis beyond 1 raises ``NotImplementedError``, and
+a mesh of more ranks than visible GPUs raises. --profile_steps writes a ``torch.profiler`` trace to
 <output_dir>/profile/trace.json. --eval_overlap scores each generator
 snapshot (FID against --fid_stats, R-precision) on a background thread
 while training goes on (``evaluation/async_eval.py``).
@@ -55,9 +56,9 @@ def parse_args(argv=None):
     parser.add_argument("--class_coe", type=float, default=10)
     parser.add_argument("--sim_coe", type=float, default=0.05)
     parser.add_argument("--mesh", type=str, default=None,
-                        help="mesh spec, e.g. data:4: one process per GPU "
-                             "(CPU processes with --device cpu); default: "
-                             "RUNTIME.MESH")
+                        help="mesh spec, e.g. data:4 or data:2,fsdp:2: one "
+                             "process per GPU (CPU processes with --device "
+                             "cpu); default: RUNTIME.MESH")
     parser.add_argument("--dtype", type=str, default=None,
                         choices=["float32", "bfloat16"],
                         help="compute dtype override")
@@ -113,7 +114,7 @@ def main(argv=None):
 
     from eegan_tpu_torch import resolve_device
     from eegan_tpu_torch.parallel import distributed
-    from eegan_tpu_torch.parallel.mesh import Mesh, check_axes, data_axis_size
+    from eegan_tpu_torch.parallel.mesh import Mesh, check_axes, mesh_shape
 
     device = resolve_device(args.device)
     config = load_config(args)
@@ -127,31 +128,34 @@ def main(argv=None):
                 rank_device = torch.device("cuda", torch.distributed.get_rank()
                                            % torch.cuda.device_count())
                 torch.cuda.set_device(rank_device)
-            mesh = Mesh.current(rank_device)
-            ranks = data_axis_size(config.RUNTIME.MESH, mesh.size)
-            if ranks != mesh.size:
+            world = torch.distributed.get_world_size()
+            data, fsdp = mesh_shape(config.RUNTIME.MESH, world)
+            if data * fsdp != world:
                 raise ValueError(
-                    f"mesh {config.RUNTIME.MESH!r} asks for {ranks} ranks; "
-                    f"the process group has {mesh.size}")
-            train(args, config, rank_device, mesh)
+                    f"mesh {config.RUNTIME.MESH!r} asks for {data * fsdp} "
+                    f"ranks; the process group has {world}")
+            train(args, config, rank_device,
+                  Mesh.current(rank_device, fsdp=fsdp))
         finally:
             distributed.shutdown()
         return
 
     visible = torch.cuda.device_count() if device.type == "cuda" else None
-    ranks = data_axis_size(config.RUNTIME.MESH, visible)
+    data, fsdp = mesh_shape(config.RUNTIME.MESH, visible)
+    ranks = data * fsdp
     if ranks == 1:
         train(args, config, device)
         return
     # One process per device, joined through a local coordinator.
     torch.multiprocessing.start_processes(
         _rank_main, args=(sys.argv[1:] if argv is None else argv, ranks,
-                          _free_port()), nprocs=ranks,
+                          fsdp, _free_port()), nprocs=ranks,
         join=True, start_method="spawn")
 
 
-def _rank_main(rank: int, argv, ranks: int, port: int) -> None:
-    """Rank ``rank`` of a one-host ``--mesh data:N`` run."""
+def _rank_main(rank: int, argv, ranks: int, fsdp: int, port: int) -> None:
+    """Rank ``rank`` of a one-host ``--mesh`` run of ``ranks`` ranks with
+    an fsdp axis of ``fsdp``."""
     from eegan_tpu_torch.parallel import distributed
     from eegan_tpu_torch.parallel.mesh import Mesh
 
@@ -165,7 +169,8 @@ def _rank_main(rank: int, argv, ranks: int, port: int) -> None:
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // ranks))
     distributed.initialize(f"127.0.0.1:{port}", ranks, rank, device=device)
     try:
-        train(args, load_config(args), device, Mesh.current(device))
+        train(args, load_config(args), device,
+              Mesh.current(device, fsdp=fsdp))
     finally:
         distributed.shutdown()
 
@@ -228,7 +233,9 @@ def train(args, config, device, mesh=None) -> None:
 
         eval_ds = (dataset if args.synthetic
                    else TextOnlyDataset(config, split="test"))
-        tester = Tester(config, eval_bundle(trainer.models), trainer.frozen,
+        tester = Tester(config, eval_bundle(trainer.models,
+                                            trainer.state.shards),
+                        trainer.frozen,
                         eval_ds, batch_size=config.TRAIN.BATCH_SIZE)
         trainer.async_eval = AsyncEvaluator(
             tester, writer=trainer.writer,

@@ -18,7 +18,11 @@ Layout under ``model_dir``:
 Every file is written to a temporary name and renamed, so a crash leaves
 the previous checkpoint whole. The state lives in ``nn.Module``s and
 optimizers that the step updates in place, so a restore loads into them:
-the optimizers keep referring to the modules' parameters.
+the optimizers keep referring to the modules' parameters. Files hold the
+unsharded layout (``training/state.py:full_state_dict``), so a state saved
+under one mesh resumes under another. Under FSDP reading the state out is
+collective: ``Trainer`` calls ``full_state_dict`` and
+``generator_weights`` on every rank and hands rank 0's result here.
 """
 
 from __future__ import annotations
@@ -30,7 +34,13 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn as nn
 
-from eegan_tpu_torch.training.state import FrozenEncoders, TrainState
+from eegan_tpu_torch.training.state import (
+    FrozenEncoders,
+    TrainState,
+    full_state_dict,
+    generator_weights,
+    load_full_state_dict,
+)
 
 FROZEN_DIR = "frozen_encoders"
 FROZEN_FILES = {"text_encoder": "text_encoder.pth",
@@ -62,19 +72,6 @@ def _cpu(tree):
     return tree
 
 
-def _load_ema(ema: Dict[str, torch.Tensor], saved: Dict[str, torch.Tensor],
-              what: str) -> None:
-    if set(ema) != set(saved):
-        raise KeyError(f"{what}: saved keys {sorted(saved)[:4]}... do not "
-                       f"match the state's {sorted(ema)[:4]}...")
-    for k, v in saved.items():
-        if v.shape != ema[k].shape:
-            raise ValueError(f"{what}[{k}]: saved {tuple(v.shape)}, state "
-                             f"{tuple(ema[k].shape)}")
-    for k, v in saved.items():
-        ema[k].copy_(v)
-
-
 class CheckpointManager:
     def __init__(self, model_dir: str):
         self.model_dir = os.path.abspath(model_dir)
@@ -95,19 +92,13 @@ class CheckpointManager:
                 out.append(int(stem))
         return sorted(out)
 
-    def save_state(self, epoch: int, state: TrainState) -> str:
+    def save_state(self, epoch: int, state: TrainState,
+                   full: Optional[Dict] = None) -> str:
+        """Write the state (``full``: its :func:`full_state_dict`, when the
+        caller has it) as ``state/<epoch>.pt``."""
         path = self.state_path(epoch)
-        atomic_save(_cpu({
-            "epoch": epoch,
-            "step": int(state.step),
-            "generator": state.generator.state_dict(),
-            "attr_enhance": state.attr_enhance.state_dict(),
-            "discriminators": [d.state_dict() for d in state.discriminators],
-            "g_opt": state.g_opt.state_dict(),
-            "d_opts": [o.state_dict() for o in state.d_opts],
-            "g_ema": state.g_ema,
-            "attr_ema": state.attr_ema,
-        }), path)
+        full = full_state_dict(state) if full is None else full
+        atomic_save(_cpu({"epoch": epoch, **full}), path)
         return path
 
     def latest_epoch(self) -> Optional[int]:
@@ -130,31 +121,7 @@ class CheckpointManager:
             raise FileNotFoundError(f"no checkpoints under {self.model_dir}")
         saved = torch.load(self.state_path(epoch), map_location="cpu",
                            weights_only=True)
-        if len(saved["discriminators"]) != len(state.discriminators):
-            raise ValueError(f"checkpoint has {len(saved['discriminators'])} "
-                             f"discriminators, the state "
-                             f"{len(state.discriminators)}")
-        seed_ema = state.g_ema is not None and saved["g_ema"] is None
-        if state.g_ema is None and saved["g_ema"] is not None:
-            raise KeyError("checkpoint holds an EMA but TRAIN.G_EMA_DECAY "
-                           "is off")
-        if state.g_ema is not None and not seed_ema:
-            _load_ema(state.g_ema, saved["g_ema"], "g_ema")
-            _load_ema(state.attr_ema, saved["attr_ema"], "attr_ema")
-        state.generator.load_state_dict(saved["generator"])
-        state.attr_enhance.load_state_dict(saved["attr_enhance"])
-        for d, sd in zip(state.discriminators, saved["discriminators"]):
-            d.load_state_dict(sd)
-        state.g_opt.load_state_dict(saved["g_opt"])
-        for opt, sd in zip(state.d_opts, saved["d_opts"]):
-            opt.load_state_dict(sd)
-        if seed_ema:
-            with torch.no_grad():
-                for ema, module in ((state.g_ema, state.generator),
-                                    (state.attr_ema, state.attr_enhance)):
-                    for name, p in module.named_parameters():
-                        ema[name].copy_(p)
-        state.step = int(saved["step"])
+        load_full_state_dict(state, saved)
         return state, int(epoch)
 
     # -- epoch-stamped generator snapshots (eval sweep input) ----------
@@ -162,19 +129,20 @@ class CheckpointManager:
         return (os.path.join(self.model_dir, f"netG_{epoch}.pth"),
                 os.path.join(self.model_dir, f"attr_enhance_{epoch}.pth"))
 
-    def save_generator(self, epoch: int, state: TrainState) -> str:
+    def save_generator(self, epoch: int, state: TrainState,
+                       weights: Optional[Tuple[Dict, Dict]] = None) -> str:
         """netG_{epoch}.pth + attr_enhance_{epoch}.pth (reference
         train.py:308-315). They feed sampling and evaluation, so with G-EMA
         on they carry the EMA parameters (the raw ones live in the
         full-state checkpoints); the generator's BN running stats are the
-        live ones either way."""
+        live ones either way. ``weights``: the state's
+        :func:`generator_weights`, when the caller has them."""
         g_path, a_path = self.generator_paths(epoch)
-        for module, ema, path in ((state.generator, state.g_ema, g_path),
-                                  (state.attr_enhance, state.attr_ema,
-                                   a_path)):
+        weights = generator_weights(state) if weights is None else weights
+        for module, w, path in ((state.generator, weights[0], g_path),
+                                (state.attr_enhance, weights[1], a_path)):
             sd = module.state_dict()
-            if ema is not None:
-                sd.update(ema)
+            sd.update(w)
             atomic_save(_cpu(sd), path)
         return g_path
 

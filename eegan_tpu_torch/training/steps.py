@@ -33,11 +33,23 @@ updates (and before the D's clipping), and the metrics are averaged so
 that each rank returns the global batch's. The discriminators have no
 batch norm, so their phase needs only the gradient average. Without a mesh
 the step carries no collective.
+
+With an fsdp axis (the state from ``create_train_state(..., mesh)``,
+``parallel/fsdp.py``) the modules are empty between steps. The step
+gathers the full parameters of every trainable module first; after each
+optimizer update whose parameters are used again in the step (the D's
+hinge update before its MAGP, the MAGP update before the G phase) it
+gathers that module again, so nothing reads a stale gather. Backward fills
+the full gradients, which the ranks average and the D's clipping reads as
+in the data-parallel step; each rank then keeps its slice of them for
+Adam. The EMA update runs on the slices, and the full parameters are
+released after the G update (under REMAT, after the backward that
+recomputes from them).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -50,12 +62,14 @@ from eegan_tpu_torch.models.attr_enhance import AttrEnhance
 from eegan_tpu_torch.models.factory import ModelBundle
 from eegan_tpu_torch.models.layers import TorchBatchNorm
 from eegan_tpu_torch.ops.damsm import words_loss_fused
+from eegan_tpu_torch.parallel.fsdp import ShardedModule, has_fsdp_axis
 from eegan_tpu_torch.parallel.mesh import Mesh, check_axes
 from eegan_tpu_torch.training.state import (
     FrozenEncoders,
     TrainState,
     clip_by_global_norm_,
     generator_params,
+    trained_tensors,
 )
 
 Batch = Dict[str, Any]
@@ -113,6 +127,25 @@ def _zero_missing_grads(params) -> None:
             p.grad = torch.zeros_like(p)
 
 
+def _apply_update(opt, params, mesh: Optional[Mesh], clip: float,
+                  sharded: Sequence[ShardedModule] = ()) -> None:
+    """One optimizer update from the gradients in ``params``: zeros for
+    parameters off the loss's path, the ranks' average, the global-norm
+    clip (``clip`` > 0), then under FSDP each rank's slices of the
+    gradients (``sharded``: the modules of ``opt``), then Adam; under FSDP
+    the slices' gradients are freed after it, so none outlives the step."""
+    _zero_missing_grads(params)
+    if mesh is not None:
+        mesh.average_gradients_(params)
+    if clip > 0:
+        clip_by_global_norm_(params, clip)
+    for m in sharded:
+        m.take_grads()
+    opt.step()
+    if sharded:
+        opt.zero_grad(set_to_none=True)
+
+
 def _gradient_penalty(disc, img, sent, is_class_scale: bool) -> torch.Tensor:
     """MAGP of one batch (chunk): the input gradients of sum(D(img, sent))
     with create_graph, so the penalty backpropagates into D."""
@@ -153,10 +186,19 @@ def build_train_step_fn(config: Config, models: ModelBundle,
     dev = models.device
 
     def d_scale_update(i, disc, opt, real, fake, sent, unpair_sent,
-                       class_labels) -> Dict[str, torch.Tensor]:
-        """Hinge step, then the MAGP step (reference train.py:437-459)."""
+                       class_labels, sharded: Sequence[ShardedModule]
+                       ) -> Dict[str, torch.Tensor]:
+        """Hinge step, then the MAGP step (reference train.py:437-459).
+        Under FSDP (``sharded``: the D's module) the D is gathered again
+        after each update, for the MAGP and for the G phase."""
         is_class_scale = use_class and i == n_scales - 1
         params = list(disc.parameters())
+
+        def update():
+            _apply_update(opt, params, mesh, tr.D_GRAD_CLIP, sharded)
+            for m in sharded:
+                m.gather()
+
         opt.zero_grad(set_to_none=True)
         if rt.DENSE_D:
             # One 2B tower pass and one 3B head pass (D has no cross-batch
@@ -198,12 +240,7 @@ def build_train_step_fn(config: Config, models: ModelBundle,
             metrics.update(real_class=err_real_c, fake_class=err_fake_c,
                            unpair_class=err_unpair_c)
         loss.backward()
-        _zero_missing_grads(params)
-        if mesh is not None:
-            mesh.average_gradients_(params)
-        if tr.D_GRAD_CLIP > 0:
-            clip_by_global_norm_(params, tr.D_GRAD_CLIP)
-        opt.step()
+        update()
         metrics = {f"errD_{i}/{k}": v.detach() for k, v in metrics.items()}
 
         # --- MAGP, a second step at the freshly updated parameters ---
@@ -221,13 +258,8 @@ def build_train_step_fn(config: Config, models: ModelBundle,
             gp_c = _gradient_penalty(disc, img_c, sent_c, is_class_scale)
             (gp_c / chunks).backward()
             gps.append(gp_c.detach())
-        # The class head is off the penalty's path.
-        _zero_missing_grads(params)
-        if mesh is not None:
-            mesh.average_gradients_(params)
-        if tr.D_GRAD_CLIP > 0:
-            clip_by_global_norm_(params, tr.D_GRAD_CLIP)
-        opt.step()
+        # The class head is off the penalty's path (a zero gradient).
+        update()
         metrics[f"errD_{i}/d_loss_gp"] = torch.stack(gps).mean()
         return metrics
 
@@ -283,6 +315,12 @@ def build_train_step_fn(config: Config, models: ModelBundle,
 
     def train_step(state: TrainState, frozen: FrozenEncoders, batch: Batch,
                    noise) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        shards = state.shards
+        if (shards is not None) != has_fsdp_axis(mesh):
+            raise ValueError("a state sharded over an fsdp axis needs a mesh "
+                             "with that axis, and the other way round")
+        if shards is not None:
+            shards.gather()
         host = {k: _tensor(v) for k, v in batch.items()}
         batch = normalize_image_leaves(
             {k: v.to(dev, non_blocking=True) for k, v in host.items()})
@@ -327,8 +365,10 @@ def build_train_step_fn(config: Config, models: ModelBundle,
             for i, (disc, opt) in enumerate(zip(state.discriminators,
                                                 state.d_opts)):
                 real = batch[f"img{models.scales[i]}"]
-                metrics.update(d_scale_update(i, disc, opt, real, fake_sg[i],
-                                              d_sent, d_unpair, class_labels))
+                metrics.update(d_scale_update(
+                    i, disc, opt, real, fake_sg[i], d_sent, d_unpair,
+                    class_labels,
+                    () if shards is None else (shards.discriminators[i],)))
 
         # --- G phase against the updated discriminators ---
         params = generator_params(state)
@@ -337,10 +377,11 @@ def build_train_step_fn(config: Config, models: ModelBundle,
                                        d_sent, sent, words, batch,
                                        class_labels)
         total.backward(inputs=params)
-        _zero_missing_grads(params)
-        if mesh is not None:
-            mesh.average_gradients_(params)
-        state.g_opt.step()
+        _apply_update(state.g_opt, params, mesh, 0.0,
+                      () if shards is None else (shards.generator,
+                                                 shards.attr_enhance))
+        if shards is not None:
+            shards.release()
         metrics.update({k: v.detach() for k, v in g_aux.items()})
         if mesh is not None:
             metrics = dict(zip(metrics, mesh.average(list(metrics.values()))))
@@ -350,7 +391,7 @@ def build_train_step_fn(config: Config, models: ModelBundle,
             with torch.no_grad():
                 for ema, module in ((state.g_ema, state.generator),
                                     (state.attr_ema, state.attr_enhance)):
-                    for name, p in module.named_parameters():
+                    for name, p in trained_tensors(module, shards):
                         ema[name].mul_(decay).add_(p, alpha=1.0 - decay)
         state.step += 1
         return state, metrics

@@ -27,7 +27,10 @@ iteration's global noise and runs the mesh step, whose math is the global
 batch's. Every rank loads a resume; rank 0 alone writes checkpoints,
 ``metrics.jsonl``, images and traces, and runs the fixed-batch sampling
 (the global batch, eval-mode batch norm) and the overlapped evaluation.
-FSDP is not ported.
+With an fsdp axis (``--mesh data:D,fsdp:F``) the state is sharded
+(``parallel/fsdp.py``): every rank then joins the gathers behind each
+checkpoint, generator snapshot, image grid and overlapped evaluation, and
+rank 0 writes; the checkpoints keep the unsharded layout.
 """
 
 from __future__ import annotations
@@ -65,6 +68,8 @@ from eegan_tpu_torch.training.state import (
     FrozenEncoders,
     TrainState,
     create_train_state,
+    full_state_dict,
+    generator_weights,
 )
 from eegan_tpu_torch.training.steps import (
     make_multi_train_step,
@@ -136,25 +141,25 @@ def noise_seed(seed: int, step: int) -> int:
 
 @contextlib.contextmanager
 def ema_weights(state: TrainState):
-    """Within the block, the generator and AttrEnhance hold their EMA
-    parameters (when G-EMA is on); the live ones are put back after."""
-    if state.g_ema is None:
+    """Within the block, the generator and AttrEnhance hold their full EMA
+    parameters (when G-EMA is on; under FSDP their full live ones
+    otherwise); what they held is put back after. Under FSDP every rank
+    must enter (it gathers)."""
+    if state.g_ema is None and state.shards is None:
         yield
         return
-    pairs = [(p, ema[name])
-             for module, ema in ((state.generator, state.g_ema),
-                                 (state.attr_enhance, state.attr_ema))
+    g, a = generator_weights(state)
+    pairs = [(p, w[name])
+             for module, w in ((state.generator, g), (state.attr_enhance, a))
              for name, p in module.named_parameters()]
-    live = [p.detach().clone() for p, _ in pairs]
-    with torch.no_grad():
-        for p, e in pairs:
-            p.copy_(e)
+    held = [p.data for p, _ in pairs]
+    for p, w in pairs:
+        p.data = w
     try:
         yield
     finally:
-        with torch.no_grad():
-            for (p, _), saved in zip(pairs, live):
-                p.copy_(saved)
+        for (p, _), data in zip(pairs, held):
+            p.data = data
 
 
 class Trainer:
@@ -201,7 +206,8 @@ class Trainer:
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             self.models = build_models(config, self.n_words, self.device)
-        self.state, init_frozen = create_train_state(config, self.models)
+        self.state, init_frozen = create_train_state(config, self.models,
+                                                     mesh)
         self.frozen = load_frozen_encoders(config, init_frozen)
         self.train_step = make_train_step(config, self.models, mesh=mesh)
         self.steps_per_dispatch = max(1, config.RUNTIME.STEPS_PER_DISPATCH)
@@ -261,12 +267,15 @@ class Trainer:
 
     def save_images(self, epoch: int) -> None:
         """Sample the fixed batch from the EMA generator (when on), with
-        noise seeded from ``epoch``."""
-        b = self._sample_batch
-        gen = torch.Generator(self.device).manual_seed(epoch)
-        noise = torch.randn((len(b["caps"]), self.config.GAN.Z_DIM),
-                            generator=gen, device=self.device)
+        noise seeded from ``epoch``. Under FSDP every rank calls it (the
+        weights are gathered) and rank 0 samples."""
         with ema_weights(self.state):
+            if not self.is_main:
+                return
+            b = self._sample_batch
+            gen = torch.Generator(self.device).manual_seed(epoch)
+            noise = torch.randn((len(b["caps"]), self.config.GAN.Z_DIM),
+                                generator=gen, device=self.device)
             imgs = self.sample_step(b["caps"], b["cap_lens"], b["attrs"],
                                     b["attr_lens"], noise)
         save_img_results([im.float().cpu().numpy() for im in imgs],
@@ -274,27 +283,31 @@ class Trainer:
 
     def save_model(self, epoch: int) -> None:
         """Epoch-gated saving (reference `save_model`, train.py:308-319) +
-        full-state checkpoint for resume."""
-        if not self.is_main:
+        full-state checkpoint for resume. Rank 0 writes; under FSDP every
+        rank gathers."""
+        if not (self.is_main or self.state.shards is not None):
             return
         t = self.config.TRAIN
         if epoch == 1 or (epoch >= t.WARMUP_EPOCHS and epoch % t.GSAVE_INTERVAL == 0):
-            self.ckpt.save_generator(epoch, self.state)
-            print("Save Gen model.")
-            if self.async_eval is not None:
-                self._submit_eval(epoch)
+            weights = generator_weights(self.state)
+            if self.is_main:
+                self.ckpt.save_generator(epoch, self.state, weights)
+                print("Save Gen model.")
+                if self.async_eval is not None:
+                    self._submit_eval(epoch, weights)
         if epoch == 1 or (epoch >= t.WARMUP_EPOCHS and epoch % t.DSAVE_INTERVAL == 0):
-            self.ckpt.save_state(epoch, self.state)
-            print("Save full train state.")
+            full = full_state_dict(self.state)
+            if self.is_main:
+                self.ckpt.save_state(epoch, self.state, full)
+                print("Save full train state.")
 
-    def _submit_eval(self, epoch: int) -> None:
-        """Hand the snapshot the sweep would see (the EMA weights when on,
-        the live BN stats) to the overlapped evaluation."""
-        st = self.state
-        g = st.g_ema or dict(st.generator.named_parameters())
-        a = st.attr_ema or dict(st.attr_enhance.named_parameters())
-        if not self.async_eval.submit(epoch, g, a,
-                                      dict(st.generator.named_buffers())):
+    def _submit_eval(self, epoch: int, weights) -> None:
+        """Hand the snapshot the sweep would see (``weights``: the state's
+        ``generator_weights``, the EMA weights when on; the live BN stats)
+        to the overlapped evaluation."""
+        g, a = weights
+        if not self.async_eval.submit(
+                epoch, g, a, dict(self.state.generator.named_buffers())):
             print(f"[async-eval] busy — skipped epoch {epoch}")
 
     def _timed(self, batches):
@@ -381,6 +394,7 @@ class Trainer:
                 ips = self.timer.images_per_sec
                 if ips is not None:
                     print(f"epoch {epoch}: {ips} images/s")
+            if self.is_main or self.state.shards is not None:
                 self.save_images(epoch)
             self.save_model(epoch)
         if prof is not None:

@@ -16,7 +16,11 @@ parent saved to IN (``torch.save``), and saves what it got to
 * ``damsm``: the sentence, words (plain and fused) and attribute losses
   over the global batch, and the parameter gradients after the ranks'
   average;
-* ``step``: one mesh train step from the saved weights.
+* ``step``: one mesh train step from the saved weights (or K steps
+  through ``make_multi_train_step``, with ``fsdp`` > 1 on a state sharded
+  over that axis): the metrics, the state in the unsharded layout, and
+  under FSDP what each sharded leaf holds at rest and that layout loaded
+  back into a fresh sharded state and read out again.
 """
 
 import os
@@ -107,8 +111,16 @@ def damsm_losses(heads, data, damsm, words_loss_fused, mesh=None):
 
 def task_step(mesh, inputs):
     from eegan_tpu_torch.models.factory import build_models
-    from eegan_tpu_torch.training.state import create_train_state
-    from eegan_tpu_torch.training.steps import make_train_step
+    from eegan_tpu_torch.parallel.fsdp import MIN_SHARD_ELEMS
+    from eegan_tpu_torch.training.state import (
+        create_train_state,
+        full_state_dict,
+        load_full_state_dict,
+    )
+    from eegan_tpu_torch.training.steps import (
+        make_multi_train_step,
+        make_train_step,
+    )
 
     cfg = inputs["config"]
     models = build_models(cfg, inputs["n_words"], device="cpu")
@@ -116,17 +128,74 @@ def task_step(mesh, inputs):
         module = (models.discriminators[int(name[5:])]
                   if name.startswith("disc_") else getattr(models, name))
         module.load_state_dict(sd)
-    state, frozen = create_train_state(cfg, models)
-    step = make_train_step(cfg, models, mesh=mesh)
-    state, metrics = step(state, frozen, mesh.shard_batch(inputs["batch"]),
-                          mesh.rows(inputs["noise"]))
+    state, frozen = create_train_state(
+        cfg, models, mesh, inputs.get("min_shard_elems", MIN_SHARD_ELEMS))
+    if "steps" in inputs:  # K steps: batch leaves (K, B, ...)
+        step = make_multi_train_step(cfg, models, mesh=mesh)
+        state, metrics = step(
+            state, frozen,
+            {k: v[:, slice(*mesh.row_range(v.shape[1]))]
+             for k, v in inputs["batch"].items()},
+            inputs["noise"][:, slice(*mesh.row_range(
+                inputs["noise"].shape[1]))])
+    else:
+        step = make_train_step(cfg, models, mesh=mesh)
+        state, metrics = step(state, frozen,
+                              mesh.shard_batch(inputs["batch"]),
+                              mesh.rows(inputs["noise"]))
+    at_rest = None if state.shards is None else _at_rest(state)
+    full = full_state_dict(state)
+    reloaded = None
+    if state.shards is not None:
+        # The unsharded layout back into a fresh sharded state.
+        fresh, _ = create_train_state(
+            cfg, build_models(cfg, inputs["n_words"], device="cpu"), mesh,
+            inputs.get("min_shard_elems", MIN_SHARD_ELEMS))
+        load_full_state_dict(fresh, full)
+        reloaded = full_state_dict(fresh)
     return {"metrics": {k: v.detach() for k, v in metrics.items()},
-            "generator": state.generator.state_dict(),
-            "attr_enhance": state.attr_enhance.state_dict(),
-            "discriminators": [d.state_dict() for d in state.discriminators],
-            "moments": [[opt.state[p]["exp_avg"] for g in opt.param_groups
-                         for p in g["params"]]
-                        for opt in (state.g_opt, *state.d_opts)]}
+            "generator": full["generator"],
+            "attr_enhance": full["attr_enhance"],
+            "discriminators": full["discriminators"],
+            "g_ema": full["g_ema"], "attr_ema": full["attr_ema"],
+            "moments": [[s["exp_avg"] for _, s in sorted(o["state"].items())]
+                        for o in (full["g_opt"], *full["d_opts"])],
+            "second_moments": [[s["exp_avg_sq"] for _, s in
+                                sorted(o["state"].items())]
+                               for o in (full["g_opt"], *full["d_opts"])],
+            "at_rest": at_rest, "full": full, "reloaded": reloaded}
+
+
+def _at_rest(state):
+    """Per sharded module and parameter: the full size, the dim the rule
+    shards (None: replicated) and the elements the rank holds of the
+    parameter in the module, of its owned tensor, of both Adam moments
+    and of its EMA copy."""
+    sh = state.shards
+    opts = {id(m): opt for m, opt in ((sh.generator, state.g_opt),
+                                      (sh.attr_enhance, state.g_opt),
+                                      *zip(sh.discriminators, state.d_opts))}
+    emas = {id(sh.generator): state.g_ema, id(sh.attr_enhance):
+            state.attr_ema}
+    out = {}
+    for key, m in (("generator", sh.generator),
+                   ("attr_enhance", sh.attr_enhance),
+                   *((f"disc_{i}", d) for i, d in
+                     enumerate(sh.discriminators))):
+        opt, ema = opts[id(m)], emas.get(id(m))
+        rows = {}
+        for j, name in enumerate(m.names):
+            owned = m.owned[j]
+            moments = opt.state[owned]
+            rows[name] = dict(
+                full=int(torch.Size(m.shapes[j]).numel()), dim=m.dims[j],
+                param=m.params[j].numel(), owned=owned.numel(),
+                exp_avg=moments["exp_avg"].numel(),
+                exp_avg_sq=moments["exp_avg_sq"].numel(),
+                ema=None if ema is None else ema[name].numel(),
+                grad=m.params[j].grad is not None)
+        out[key] = rows
+    return out
 
 
 TASKS = {"init": task_init, "bn": task_bn, "damsm": task_damsm,
@@ -141,9 +210,9 @@ def main():
         distributed.initialize(coordinator, int(world), int(rank),
                                device="cpu")
     try:
-        mesh = Mesh.current("cpu")
         inputs = (torch.load(in_path, weights_only=False)
                   if os.path.exists(in_path) else {})
+        mesh = Mesh.current("cpu", fsdp=inputs.get("fsdp", 1))
         result = TASKS[task](mesh, inputs)
         torch.save(result, f"{out_path}.{mesh.rank}")
     finally:

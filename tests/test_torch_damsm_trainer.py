@@ -341,13 +341,14 @@ def test_cli_needs_a_gpu_unless_told_cpu(module):
     assert "CUDA is not available" in proc.stderr
 
 
-@pytest.mark.parametrize("flags", [["--mesh", "data:2,fsdp:2"],
-                                   ["--distributed", "--mesh", "fsdp:2"],
+@pytest.mark.parametrize("flags", [["--mesh", "fsdp:2,data:2"],
+                                   ["--distributed", "--mesh",
+                                    "data:2,tensor:2"],
                                    ["--mesh", "data:1,model:2"]])
 def test_train_cli_refuses_what_is_not_ported(flags):
     from eegan_tpu_torch.train import main
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
+    with pytest.raises(NotImplementedError, match="not ported"):
         main(["--device", "cpu", "--synthetic", *flags])
 
 

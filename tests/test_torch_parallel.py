@@ -47,7 +47,7 @@ from eegan_tpu_torch.models.layers import TorchBatchNorm
 from eegan_tpu_torch.parallel.mesh import (
     Mesh,
     check_axes,
-    data_axis_size,
+    mesh_shape,
     parse_mesh_spec,
 )
 from test_torch_train_step import (
@@ -129,23 +129,24 @@ def test_parse_mesh_spec_errors_match_jax(spec, n):
 
 
 def test_data_axis_size():
-    assert data_axis_size("data:-1", 4) == 4
-    assert data_axis_size("data:-1", None) == 1
-    assert data_axis_size("data:3", None) == 3
-    assert data_axis_size("data:2,fsdp:1", 2) == 2
-    assert data_axis_size("fsdp:1", 8) == 1
+    """``mesh_shape`` (the data and fsdp axes' sizes) on data-only specs."""
+    assert mesh_shape("data:-1", 4) == (4, 1)
+    assert mesh_shape("data:-1", None) == (1, 1)
+    assert mesh_shape("data:3", None) == (3, 1)
+    assert mesh_shape("data:2,fsdp:1", 2) == (2, 1)
+    assert mesh_shape("fsdp:1", 8) == (1, 1)
     # More ranks than devices raises; it never shrinks.
     with pytest.raises(ValueError, match="needs 4 devices, have 2"):
-        data_axis_size("data:4", 2)
+        mesh_shape("data:4", 2)
 
 
-@pytest.mark.parametrize("spec", ["data:2,fsdp:2", "fsdp:-1", "fsdp",
+@pytest.mark.parametrize("spec", ["data:2,model:2", "model:-1", "tensor",
                                   "data:1,model:2"])
 def test_unported_axes_raise(spec):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
+    with pytest.raises(NotImplementedError, match="is not ported"):
         check_axes(spec)
     with pytest.raises(NotImplementedError):
-        data_axis_size(spec, 8)
+        mesh_shape(spec, 8)
 
 
 def test_mesh_rows():

@@ -72,8 +72,8 @@ def _calls(module):
 
 
 @pytest.mark.parametrize("runtime,ablate,error", [
-    (dict(MESH="data:2,fsdp:2"), (), NotImplementedError),
-    (dict(MESH="fsdp:-1"), (), NotImplementedError),
+    (dict(MESH="fsdp:2,data:2"), (), NotImplementedError),
+    (dict(MESH="tensor:-1"), (), NotImplementedError),
     (dict(MESH="data:1,model:2"), (), NotImplementedError),
     (dict(), ("nope",), ValueError)])
 def test_unported_settings_are_refused(runtime, ablate, error):
