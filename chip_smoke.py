@@ -6,7 +6,9 @@
 Phases (any failure exits non-zero and prints no ``ok`` line):
 
 1. environment: torch/CUDA versions and the card's name and power limit;
-2. build every CUDA source of the port with nvcc (all started together);
+2. build every CUDA source of the port with nvcc (all started together),
+   in a thread beside phase 15's DAMSM step parity, which launches no
+   kernel;
 3. the affine forward against its plain PyTorch version on the card, at
    the shapes the sampling path (B=8, cfg/sample_bird.yml widths) and the
    train step (B=32, cfg/bird.yml) give it, at ragged shapes with every
@@ -49,7 +51,12 @@ sampling phases:
    1e-4 of each case's largest |gradient| plus 2e-3 relative;
 10. the float32 train step on cuda (TF32 off) against the same step on the
    CPU, full width, B=4, same weights, batch and noise: metrics, updated
-   parameters and the kernel launches per step (14 / 14 / 1 / 1 / 0);
+   parameters and the kernel launches per step (14 / 14 / 1 / 1 / 0); then
+   from the same start under deterministic algorithms, the step with
+   kernels 1-2 on, off and on again: every tensor's Adam moments of each
+   optimizer, (b) on against off within 10 times (c) the rerun's distance
+   plus 1e-4 (PERF.md §2), (a) against the CPU step reported, the ten
+   tensors nearest their bar printed;
 11. the bf16 train step at B=32: a few steps with finite metrics and the
    same launches per step;
 12. times of the affine forward and backward and the DAMSM kernels at the
@@ -101,7 +108,8 @@ The evaluation slice, run after phase 15's CLIs in phase 14's directory
    PNG writes, launches per batch, one batch's device busy time and idle
    share), FID feature and IS probability images/s and the IS fine-tune
    step's ms; the CLIs as subprocesses (``test`` with 1024 images and
-   R-precision, ``fid_score --dataset_npz`` then its ``Epoch_1_0`` sweep,
+   R-precision, and with 64 over ``--set RUNTIME.MESH=data:2``,
+   ``fid_score --dataset_npz`` then its ``Epoch_1_0`` sweep,
    ``finetune_inception`` then ``inception_score --is_classifier``,
    ``sample --from_dataset --model_dir``); and a Trainer of two epochs
    whose epoch-1 snapshot an ``AsyncEvaluator`` scores (FID,
@@ -116,15 +124,18 @@ Training at scale, run last (cfg/bird.yml, both kernel families on):
    BN running stats within 1e-6 and moved once (num_batches_tracked 1),
    and kernel 1 launched 14 + 2 x 7 times (again in the backward for each
    recomputed SAGB block); bf16 step ms and peak memory at B=32 with REMAT
-   off, on, on for blocks 4,5,6 and the Cum blocks only, and
-   REMAT_IMAGE_ENCODER alone; and at B=192 with REMAT on;
+   off and on (3 timed steps each), with REMAT and
+   REMAT_BLOCKS=4,5,6,cum and with REMAT_IMAGE_ENCODER alone (one timed
+   step each), and at B=192 with REMAT on;
 18. the data-parallel path: two gloo ranks on the one card (float32, TF32
    off, global B=8, 4 per rank) take one mesh step, held against the
    single-process step at B=8 on the card (metrics, Adam moments within
    1e-3, parameters and BN running stats at phase 10's bars) with the
    same kernel launches per rank; then ``python -m eegan_tpu_torch.train
    --distributed`` as one NCCL rank (EEGAN_NUM_PROCESSES=1) for a few
-   iterations on phase 14's corpus, with its images/s;
+   iterations on phase 14's corpus, started after phase 14 and run beside
+   the CLIs and the parity check of phases 15-16 (its images/s is
+   printed, but is not a rate);
 19. FSDP: the same two gloo ranks at ``data:1,fsdp:2`` (the large
    parameters, their Adam moments and EMA sharded over the ranks) take
    one step from phase 18's weights, batch and noise, held against the
@@ -143,17 +154,39 @@ RUNTIME.PALLAS_DAMSM):
 20. each probe's own ``main`` at a few steps: the colour probe
    (``eegan_tpu_torch.validate_learning``: 20 DAMSM steps, 40 GAN steps,
    one probe), the words probe's two arms (``validate_words --pallas 1``,
-   40 steps each), the R-precision gate (``validate_rprecision``: 6 GAN
+   20 steps each), the R-precision gate (``validate_rprecision``: 6 GAN
    steps, then the ``test`` CLI's sweep of 64 images per epoch as a
    subprocess on cuda) and the IS fine-tune check
    (``validate_is_finetune``, 10 steps); per GAN step ms (host clock,
    synchronised), device busy (torch.profiler over 3 more steps) and
    kernel launches (14 / 14 / 1 / 1 / 0; the off arm 14 / 14 / 0 / 0 / 0),
    every loss finite, each probe's result dict; under PyTorch's default
-   TF32 settings, as the probes' CLIs run.
+   TF32 settings, as the probes' CLIs run; then phase 10's moment check
+   at the colour probe's configuration (B=32, float32) from its state
+   before the first GAN step and after the last, with its own batch and
+   noise, RUNTIME.FUSED_UPSAMPLE on and off.
 
-The last lines are one JSON ``kernels`` line, the card's name and power
-limit as nvidia-smi prints them, and ``{"ok": true, "device": {...}}``;
+Evaluation over the mesh, run last:
+
+21. two gloo ranks on the one card (``Tester(mesh=...)``) against one
+   process, on phase 14's corpus and epoch-1 snapshot, float32, TF32 off:
+   a sweep of 256 images at B=32 with PNGs and R-precision (images, codes
+   and similarities within 1e-3 of their largest, hits equal but at near
+   ties, 14 launches of kernel 1 per rank per batch, the PNG folders the
+   same files within one level), the sweep's images/s on the two ranks
+   without and with PNGs (both ranks share the card: not a scaling
+   figure); one IS fine-tune step at global B=32
+   (``make_finetune_step(mesh=...)``) at PERF.md §2's bars, beside the
+   card's rerun spread and the step's float64 distance, and the same step
+   in float64 on the ranks against one process (gradients within 1e-5
+   relative L2 over the network and in each tensor); and the ``test``
+   CLI with ``--set RUNTIME.MESH=data:2`` as a subprocess on cuda (run
+   with phase 16's CLIs).
+
+Each phase's seconds are printed as it ends, and all of them with the
+run's total on a JSON line before the last three. The last lines are one
+JSON ``kernels`` line, the card's name and power limit as nvidia-smi
+prints them, and ``{"ok": true, "device": {...}}``;
 the JSON lines before them hold the steps' times and the breakdowns'
 summaries. Every launch's times, the profiles' operation lists and the
 checks' errors go to the JSON file that ``--out`` names
@@ -164,6 +197,7 @@ of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -190,6 +224,81 @@ def fail(msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+_BACKGROUND = []
+
+
+def background(proc):
+    """Register a subprocess that runs while this script goes on: it is
+    killed at exit if it is still running (a failed phase exits early)."""
+    if not _BACKGROUND:
+        import atexit
+
+        atexit.register(_stop_background)
+    _BACKGROUND.append(proc)
+    return proc
+
+
+def _stop_background() -> None:
+    for proc in _BACKGROUND:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+class Stopwatch:
+    """Each phase's seconds, logged as it ends, and the run's total."""
+
+    def __init__(self):
+        self.start = time.perf_counter()
+        self.seconds = {}
+
+    def __call__(self, name: str, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        self.seconds[name] = time.perf_counter() - t0
+        log(f"{name}: {self.seconds[name]:.1f} s (at "
+            f"{self.total():.1f} s)")
+        return out
+
+    def total(self) -> float:
+        return time.perf_counter() - self.start
+
+
+def start_build():
+    """Phase 2 in a thread: every CUDA source through nvcc, all started
+    together (``_build.build``), while the main thread runs a phase that
+    launches no kernel. :func:`finish_build` waits for it."""
+    import threading
+
+    from eegan_tpu_torch.ops import _build
+
+    job = {}
+
+    def run():
+        t0 = time.perf_counter()
+        try:
+            job["built"] = _build.build(_build.sources())
+        except Exception as e:  # raised again by finish_build
+            job["error"] = e
+        job["seconds"] = time.perf_counter() - t0
+
+    job["thread"] = threading.Thread(target=run, daemon=True)
+    job["thread"].start()
+    return job
+
+
+def finish_build(job):
+    job["thread"].join()
+    if "error" in job:
+        fail(f"phase 2: the build failed: {job['error']}")
+    for lib_name, path in job["built"].items():
+        ptxas = [ln.strip() for ln in path.with_suffix(".log").read_text()
+                 .splitlines() if "registers" in ln]
+        log(f"phase 2 ok: built {lib_name} -> {path.name} in "
+            f"{job['seconds']:.1f} s; ptxas: {ptxas[:6]}")
+    return job["seconds"]
 
 
 def nvidia_smi() -> str:
@@ -1034,6 +1143,7 @@ def phase_train_parity():
     batch, noise = train_inputs(config, PARITY_BATCH, SEED)
 
     state, frozen = create_train_state(config, gpu)
+    start = state_snapshot(state, "cuda")
     step = make_train_step(config, gpu)
     zero_counts()
     state, metrics = step(state, frozen, batch, noise)
@@ -1062,13 +1172,17 @@ def phase_train_parity():
     if bad:
         fail(f"train step params cuda vs cpu out of bounds in {bad}: "
              f"{param_err}")
+    state_restore(state, start)
+    moments = affine_switch_check("phase 10", step, state, frozen, batch,
+                                  noise, reference=named_moments(cstate))
     log(f"phase 10 ok: float32 train step (bird.yml, B={PARITY_BATCH}) on "
         f"cuda matches the CPU step: max metric err "
         f"{max(metric_err.values())}, params {param_err}; launches "
-        f"{launches}; CPU step {cpu_s:.1f} s")
+        f"{launches}; CPU step {cpu_s:.1f} s; kernels 1-2 on against off "
+        f"within the bar in every tensor's moments")
     return dict(launches=launches, metric_max_abs_err=metric_err,
                 params=param_err, cpu_step_s=cpu_s,
-                errG_total=float(metrics["errG/total"]))
+                errG_total=float(metrics["errG/total"]), moments=moments)
 
 
 def phase_train_bf16():
@@ -1284,6 +1398,209 @@ def optimizer_moments(state):
     return out
 
 
+# The kernels-on train step held by its Adam moments (PERF.md §2): per
+# tensor, (b) kernels 1-2 on against off from the same state within
+# SWITCH_SPREAD times (c), a second kernels-on run from that state, plus
+# SWITCH_FLOOR; both under deterministic algorithms. The reruns read 0 in
+# every tensor, so the floor is the bar: 1e-4, about 18 times the largest
+# (b) of the 3000-step trajectory's 12 states (5.68e-6, PERF.md §2).
+MOMENT_KEYS = ("exp_avg", "exp_avg_sq")
+SWITCH_SPREAD = 10
+SWITCH_FLOOR = 1e-4
+NOISE_SCALE = 1e-3
+WORST_ROWS = 10
+
+
+def named_moments(state):
+    """Each optimizer's Adam moments by (optimizer, parameter name, key),
+    cloned (with TRAIN.B1 = 0 the first moment is the step's gradient)."""
+    names = {"g": [f"generator.{n}" for n, _ in
+                   state.generator.named_parameters()]
+             + [f"attr_enhance.{n}" for n, _ in
+                state.attr_enhance.named_parameters()]}
+    for i, d in enumerate(state.discriminators):
+        names[f"d{i}"] = [n for n, _ in d.named_parameters()]
+    return {(opt, names[opt][j], key): value.detach().clone()
+            for (opt, j, key), value in optimizer_moments(state).items()
+            if key in MOMENT_KEYS}
+
+
+def moment_distances(got, want):
+    """(per tensor, per optimizer and moment) relative L2 distances of two
+    ``named_moments`` dicts. A tensor's distance is over the larger of its
+    own norm and NOISE_SCALE times its share of its optimizer's norm
+    (sqrt(n / N) of it): a gradient the math makes about 0 (a bias before
+    a batch norm) is rounding noise, measured against a typical entry."""
+    per_tensor, per_opt = {}, {}
+    for opt in sorted({k[0] for k in want}):
+        for key in MOMENT_KEYS:
+            ks = [k for k in want if k[0] == opt and k[2] == key]
+            w = {k: want[k].detach().double().cpu() for k in ks}
+            g = {k: got[k].detach().double().cpu() for k in ks}
+            total = math.sqrt(sum(float(w[k].square().sum()) for k in ks))
+            n_opt = sum(w[k].numel() for k in ks)
+            diff = math.sqrt(sum(float((g[k] - w[k]).square().sum())
+                                 for k in ks))
+            for k in ks:
+                scale = max(float(w[k].norm()), NOISE_SCALE * total
+                            * math.sqrt(w[k].numel() / n_opt), 1e-30)
+                per_tensor[k] = float((g[k] - w[k]).norm()) / scale
+            per_opt[f"{opt}.{key}"] = diff / max(total, 1e-30)
+    return per_tensor, per_opt
+
+
+def state_snapshot(state, device="cpu"):
+    """A copy of the train state (``full_state_dict``) on ``device``, for
+    :func:`state_restore`."""
+    import torch
+
+    from eegan_tpu_torch.training.state import full_state_dict
+
+    def copy_to(tree):
+        if isinstance(tree, torch.Tensor):
+            return tree.detach().to(device, copy=True)
+        if isinstance(tree, dict):
+            return {k: copy_to(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [copy_to(v) for v in tree]
+        return tree
+
+    return copy_to(full_state_dict(state))
+
+
+def state_restore(state, snap) -> None:
+    """Put a :func:`state_snapshot` back into ``state`` (its modules and
+    optimizers keep their identity; the snapshot stays untouched, as an
+    optimizer's ``load_state_dict`` keeps the tensors it is given)."""
+    import copy
+
+    from eegan_tpu_torch.training.state import load_full_state_dict
+
+    load_full_state_dict(state, copy.deepcopy(snap))
+
+
+class deterministic_card:
+    """``torch.use_deterministic_algorithms(True, warn_only=True)``,
+    cuDNN's deterministic algorithms and TF32 off while entered; ``ops``
+    collects the
+    first line of each warning an operation without a deterministic
+    implementation gave."""
+
+    def __enter__(self):
+        import warnings
+
+        import torch
+
+        self.prev = (torch.are_deterministic_algorithms_enabled(),
+                     torch.is_deterministic_algorithms_warn_only_enabled(),
+                     torch.backends.cudnn.deterministic,
+                     torch.backends.cudnn.benchmark,
+                     torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        self.caught = warnings.catch_warnings(record=True)
+        self.records = self.caught.__enter__()
+        warnings.simplefilter("always")
+        return self
+
+    @property
+    def ops(self):
+        return sorted({str(w.message).splitlines()[0][:160]
+                       for w in self.records})
+
+    def __exit__(self, *exc):
+        import torch
+
+        self.caught.__exit__(*exc)
+        torch.use_deterministic_algorithms(self.prev[0],
+                                           warn_only=self.prev[1])
+        (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+         torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = self.prev[2:]
+
+
+def affine_switch_check(what: str, step_fn, state, frozen, batch, noise,
+                        reference=None, strict: bool = True):
+    """One train step from ``state``'s contents with kernels 1-2 on
+    (RUNTIME.PALLAS_AFFINE), one with them off, and a second one on, each
+    from the same state, batch and noise, under deterministic algorithms;
+    the Adam moments per tensor: (b) off against on, (c) on again against
+    on, and (a) on against ``reference`` (another step's ``named_moments``
+    from the same state: the CPU's) when given. Prints the WORST_ROWS
+    tensors nearest their bar and fails where (b) exceeds SWITCH_SPREAD x
+    (c) + SWITCH_FLOOR (with ``strict``), or where the switch did not
+    switch. Leaves the state, the switches and the launch counters as
+    they were."""
+    import torch
+
+    from eegan_tpu_torch.models.generator import AffineSSA
+
+    mods = [m for m in state.generator.modules() if isinstance(m, AffineSSA)]
+    was = [m.pallas for m in mods]
+    saved = read_counts()
+    snap = state_snapshot(state, "cuda")
+    runs, launches = {}, {}
+    with deterministic_card() as det:
+        for arm in ("on", "off", "on_again"):
+            state_restore(state, snap)
+            for m in mods:
+                m.pallas = arm != "off"
+            zero_counts()
+            step_fn(state, frozen, batch, noise)
+            torch.cuda.synchronize()
+            launches[arm] = read_counts()
+            runs[arm] = named_moments(state)
+    state_restore(state, snap)
+    for m, p in zip(mods, was):
+        m.pallas = p
+    set_counts(saved)
+    for arm, got in launches.items():
+        want = 0 if arm == "off" else len(mods)
+        if any(got[k] != want for k in ("affine_mask_relu",
+                                        "affine_mask_relu_backward")):
+            fail(f"{what}: the {arm} arm launched {got}, want {want} of "
+                 f"kernels 1 and 2")
+    b, b_opt = moment_distances(runs["off"], runs["on"])
+    c, c_opt = moment_distances(runs["on_again"], runs["on"])
+    a, a_opt = (moment_distances(runs["on"], reference)
+                if reference is not None else ({}, {}))
+    rows = []
+    for k in runs["on"]:
+        bar = SWITCH_SPREAD * c[k] + SWITCH_FLOOR
+        rows.append(dict(opt=k[0], tensor=k[1], moment=k[2], b=b[k],
+                         c=c[k], a=a.get(k), bar=bar,
+                         b_over_bar=b[k] / bar))
+    rows.sort(key=lambda r: -r["b_over_bar"]
+              if math.isfinite(r["b_over_bar"]) else -math.inf)
+    for r in rows[:WORST_ROWS]:
+        log(f"{what}: {r['opt']} {r['tensor']} {r['moment']}: (b) on vs off "
+            f"{r['b']:.3e}, (c) rerun {r['c']:.3e}, bar {r['bar']:.3e}"
+            + (f", (a) vs CPU {r['a']:.3e}" if r["a"] is not None else ""))
+    bad = [r for r in rows if not r["b"] <= r["bar"]]
+    out = dict(within_bar=not bad, beyond_bar=len(bad),
+               per_optimizer={"b_on_vs_off": b_opt, "c_rerun": c_opt,
+                              "a_vs_reference": a_opt},
+               max_b=max(b.values()), max_c=max(c.values()),
+               max_a=max(a.values()) if a else None,
+               tensors=len(rows), worst=rows[:WORST_ROWS],
+               nondeterministic_ops=det.ops)
+    if bad and strict:
+        fail(f"{what}: kernels 1-2 on against off beyond {SWITCH_SPREAD} x "
+             f"the rerun spread + {SWITCH_FLOOR} in {len(bad)} tensors: "
+             f"{bad[:WORST_ROWS]}")
+    log(f"{what}: moments of {len(rows)} tensors: (b) on vs off max "
+        f"{out['max_b']:.3e}, (c) rerun max {out['max_c']:.3e}"
+        + (f", (a) vs CPU max {out['max_a']:.3e}" if a else "")
+        + f"; per optimizer (b) {b_opt}, (c) {c_opt}"
+        + (f", (a) {a_opt}" if a else "")
+        + f"; ops without a deterministic algorithm: {det.ops}")
+    return out
+
+
 def trace_device_busy(path: str, steps: int):
     """(ms per step, operations per step) of the device in a torch.profiler
     Chrome trace of ``steps`` steps: the union of its kernels', copies' and
@@ -1490,6 +1807,7 @@ def phase_clis(tmp: str):
 EVAL_PARITY_IMAGES = 16  # Tester.generate, float32, cuda against the CPU
 EVAL_PARITY_BATCH = 8
 EVAL_CLI_IMAGES = 1024  # the test CLI's --sampling_nums
+EVAL_MESH_CLI_IMAGES = 64  # the same over --set RUNTIME.MESH=data:2
 EVAL_TIMED_IMAGES = 256  # in-process sweep timing, B=32, bf16
 EVAL_OVERLAP_IMAGES = 256  # the AsyncEvaluator's eval_nums
 FID_DATASET_IMAGES = 512  # fid_score --dataset_npz over the test split
@@ -1497,10 +1815,10 @@ FINETUNE_ITERS = 4
 R_VAL = 100
 
 
-def eval_tester(config, device, model_dir, batch_size):
-    """A Tester over the trainer's epoch-1 generator snapshot and frozen
-    encoders with random weights from the seed (the same on every
-    device)."""
+def eval_tester(config, device, model_dir, batch_size, mesh=None):
+    """A Tester (over ``mesh``, if given) over the trainer's epoch-1
+    generator snapshot and frozen encoders with random weights from the
+    seed (the same on every device)."""
     import torch
 
     from eegan_tpu_torch.data.datasets import TextOnlyDataset
@@ -1518,7 +1836,8 @@ def eval_tester(config, device, model_dir, batch_size):
     _, frozen = create_train_state(config, models)
     CheckpointManager(model_dir).load_generator(1, models.generator,
                                                 models.attr_enhance)
-    return Tester(config, models, frozen, dataset, batch_size=batch_size)
+    return Tester(config, models, frozen, dataset, batch_size=batch_size,
+                  mesh=mesh)
 
 
 def recorded(fn, rows):
@@ -1650,9 +1969,9 @@ def run_clis_together(jobs, logdir):
     procs = {}
     for name, args in jobs.items():
         out = open(os.path.join(logdir, f"{name}.out"), "w+")
-        procs[name] = (subprocess.Popen(
+        procs[name] = (background(subprocess.Popen(
             [sys.executable, "-m", *args], cwd=ROOT, stdout=out,
-            stderr=subprocess.STDOUT, text=True), out)
+            stderr=subprocess.STDOUT, text=True)), out)
     outputs = {}
     for name, (proc, out) in procs.items():
         try:
@@ -1670,8 +1989,9 @@ def run_clis_together(jobs, logdir):
 
 def phase_eval_clis(tmp, data_dir, model_dir):
     """(16b) the evaluation CLIs as subprocesses on the card: ``test``
-    (EVAL_CLI_IMAGES PNGs and an R-precision in [0, 1]), ``fid_score
-    --dataset_npz`` over the test split (``--inception_ckpt``:
+    (EVAL_CLI_IMAGES PNGs and an R-precision in [0, 1]), the same with
+    ``--set RUNTIME.MESH=data:2`` (phase 21's; EVAL_MESH_CLI_IMAGES),
+    ``fid_score --dataset_npz`` over the test split (``--inception_ckpt``:
     ``informative_inception``'s), ``finetune_inception`` for
     FINETUNE_ITERS iterations and ``sample --from_dataset --model_dir``
     together; then the ``fid_score`` sweep of Epoch_1_0 against the npz (a
@@ -1706,7 +2026,13 @@ def phase_eval_clis(tmp, data_dir, model_dir):
                      *sets],
         "sample": ["eegan_tpu_torch.sample", "--cfg", cfg, "--from_dataset",
                    "--model_dir", model_dir, "--epoch", "1",
-                   "--output_dir", "samples", *sets]}, tmp)
+                   "--output_dir", "samples", *sets],
+        # Phase 21's CLI over the mesh: its two ranks share the card (gloo).
+        "test_mesh": ["eegan_tpu_torch.test", "--cfg", cfg, "--model_dir",
+                      model_dir, "--select_epochs", "1", "--sampling_nums",
+                      str(EVAL_MESH_CLI_IMAGES), "--saving_image",
+                      "--compare_sim", "--output_dir", "eval_mesh",
+                      "--set", "RUNTIME.MESH=data:2", *sets]}, tmp)
     first_s = time.perf_counter() - t0
     folder = os.path.join(gen_root, "Epoch_1_0")
     pngs = len([f for f in os.listdir(folder) if f.endswith(".png")])
@@ -1715,6 +2041,14 @@ def phase_eval_clis(tmp, data_dir, model_dir):
             or not 0.0 <= float(found.group(1)) <= 1.0:
         fail(f"test CLI: {pngs} PNGs, output {first['test'][-2000:]}")
     r_precision = float(found.group(1))
+    folder = os.path.join(tmp, "eval_mesh", "GenImage", "Epoch_1_0")
+    mesh_pngs = len([f for f in os.listdir(folder) if f.endswith(".png")])
+    mesh_found = re.search(r"'r_precision_mean': ([0-9.e-]+)",
+                           first["test_mesh"])
+    if mesh_pngs != EVAL_MESH_CLI_IMAGES or not mesh_found \
+            or not 0.0 <= float(mesh_found.group(1)) <= 1.0:
+        fail(f"test CLI over data:2: {mesh_pngs} PNGs, output "
+             f"{first['test_mesh'][-2000:]}")
     for path in (npz, classifier, os.path.join(
             tmp, "samples", "cap_0", "samples.png"), os.path.join(
             tmp, "samples", "real_images", "real_images.png")):
@@ -1742,7 +2076,9 @@ def phase_eval_clis(tmp, data_dir, model_dir):
     result = dict(test_images=pngs, test_r_precision=r_precision,
                   fid=float(fid.group(1)), inception_score=float(
                       score.group(1)), first_group_s=first_s,
-                  second_group_s=second_s)
+                  second_group_s=second_s,
+                  test_mesh=dict(images=mesh_pngs, r_precision=float(
+                      mesh_found.group(1))))
     log(f"phase 16 CLIs ok: test wrote {pngs} PNGs, R-precision "
         f"{r_precision}; fid_score {result['fid']}; finetune_inception "
         f"{FINETUNE_ITERS} iterations, inception_score "
@@ -1907,19 +2243,6 @@ def phase_eval_times(data_dir, model_dir):
         f" images/s, IS probabilities {result['is_probs_images_per_s']} "
         f"images/s, fine-tune step {ft_ms} ms")
     return result
-
-
-def phase_eval(tmp):
-    """(16) evaluation, on phase 14's demo corpus and trainer run."""
-    data_dir = os.path.join(tmp, "data")
-    model_dir = os.path.join(tmp, "run", "Model")
-    clis_dir = os.path.join(tmp, "eval")
-    os.makedirs(clis_dir, exist_ok=True)
-    parity = phase_eval_parity(data_dir, model_dir)
-    times = phase_eval_times(data_dir, model_dir)
-    clis = phase_eval_clis(clis_dir, data_dir, model_dir)
-    overlap = phase_eval_overlap(clis_dir, data_dir)
-    return dict(parity=parity, times=times, clis=clis, overlap=overlap)
 
 
 def damsm_gaps(sides, lr, b1, select):
@@ -2271,35 +2594,20 @@ def conv_pass_errors(encoder64):
 
 REMAT_ON = ("RUNTIME.REMAT=true", "RUNTIME.REMAT_D=true",
             "RUNTIME.REMAT_IMAGE_ENCODER=true")
-# (name, overrides) of the bf16 settings timed at B=32.
+# (name, overrides, timed steps) of the bf16 settings timed at B=32.
+REMAT_TIMED_STEPS = 3
 REMAT_SETTINGS = (
-    ("off", ()),
-    ("remat", ("RUNTIME.REMAT=true",)),
+    ("off", (), REMAT_TIMED_STEPS),
+    ("remat", ("RUNTIME.REMAT=true",), REMAT_TIMED_STEPS),
     ("remat_blocks_4_5_6_cum", ("RUNTIME.REMAT=true",
-                                "RUNTIME.REMAT_BLOCKS=4,5,6,cum")),
-    ("remat_image_encoder", ("RUNTIME.REMAT_IMAGE_ENCODER=true",)))
+                                "RUNTIME.REMAT_BLOCKS=4,5,6,cum"), 1),
+    ("remat_image_encoder", ("RUNTIME.REMAT_IMAGE_ENCODER=true",), 1))
 LARGE_BATCH = 192
-REMAT_TIMED_STEPS = 5
 SAGB_BLOCKS = 7
 MESH_RANKS = 2
 MESH_BATCH = 8  # global; 4 per rank
 NCCL_ITERS = 8
 FSDP = 2  # phase 19: data:1,fsdp:2 on phase 18's two gloo ranks
-
-
-def moment_gaps(got, want):
-    """Relative L2 distance of each optimizer's first and second Adam
-    moments, over all its parameters (``optimizer_moments`` dicts)."""
-    import torch
-
-    out = {}
-    for opt in sorted({k[0] for k in want}):
-        for key in ("exp_avg", "exp_avg_sq"):
-            ks = sorted(k for k in want if k[0] == opt and k[2] == key)
-            a = torch.cat([got[k].cpu().double().reshape(-1) for k in ks])
-            b = torch.cat([want[k].cpu().double().reshape(-1) for k in ks])
-            out[f"{opt}.{key}"] = float((a - b).norm() / b.norm())
-    return out
 
 
 def timed_step(config, batch_size: int, reps: int = REMAT_TIMED_STEPS):
@@ -2376,7 +2684,8 @@ def phase_remat():
         fail("phase 17: REMAT did not reach the generator")
     metric_err = metric_errors(runs["on"]["metrics"], runs["off"]["metrics"],
                                "REMAT step vs plain step")
-    moments = moment_gaps(runs["on"]["moments"], runs["off"]["moments"])
+    moments = moment_distances(runs["on"]["moments"],
+                               runs["off"]["moments"])[1]
     if max(moments.values()) > 1e-3:
         fail(f"REMAT step Adam moments vs the plain step: {moments}")
     stats_err = 0.0
@@ -2404,12 +2713,13 @@ def phase_remat():
         f"{stats_err}; launches {runs['on']['counts']}")
 
     times = {}
-    for name, overrides in REMAT_SETTINGS:
+    for name, overrides, reps in REMAT_SETTINGS:
         config = apply_overrides(bird_config("bfloat16"), list(overrides))
-        ms, peak = timed_step(config, TRAIN_BATCH)
+        ms, peak = timed_step(config, TRAIN_BATCH, reps)
         times[name] = dict(batch=TRAIN_BATCH, ms=ms,
                            images_per_s=TRAIN_BATCH / ms * 1e3,
-                           peak_mib=peak, overrides=list(overrides))
+                           peak_mib=peak, overrides=list(overrides),
+                           timed_steps=reps)
     config = apply_overrides(bird_config("bfloat16"), ["RUNTIME.REMAT=true"])
     ms, peak = timed_step(config, LARGE_BATCH, reps=3)
     times["remat_large_batch"] = dict(
@@ -2574,7 +2884,7 @@ def phase_mesh_step(tmp: str):
     for r, got in enumerate(ranks):
         what = f"mesh step rank {r} vs the single-process step"
         metric_err = metric_errors(got["metrics"], want["metrics"], what)
-        moments = moment_gaps(got["moments"], want["moments"])
+        moments = moment_distances(got["moments"], want["moments"])[1]
         if max(moments.values()) > 1e-3:
             fail(f"{what}: Adam moments {moments}")
         param_err, bad = adam_param_errors(config, got["sds"], want["sds"])
@@ -2639,7 +2949,8 @@ def rank_gaps(got, want):
             n += err.numel()
         modules[name] = dict(max_abs=worst, off_1e6=off, n=n)
     return dict(metrics_rel=metrics,
-                moments_rel_l2=moment_gaps(got["moments"], want["moments"]),
+                moments_rel_l2=moment_distances(got["moments"],
+                                                want["moments"])[1],
                 modules=modules)
 
 
@@ -2681,7 +2992,7 @@ def phase_fsdp_step(tmp: str, ctx):
     for r, got in enumerate(ranks):
         what = f"FSDP rank {r} vs the single-process step"
         metric_err = metric_errors(got["metrics"], want["metrics"], what)
-        moments = moment_gaps(got["moments"], want["moments"])
+        moments = moment_distances(got["moments"], want["moments"])[1]
         if max(moments.values()) > 1e-3:
             fail(f"{what}: Adam moments {moments}")
         param_err, bad = adam_param_errors(config, got["sds"], want["sds"])
@@ -2737,24 +3048,54 @@ def phase_fsdp_step(tmp: str, ctx):
     return result
 
 
-def phase_nccl_cli(tmp: str, data_dir: str):
-    """(18b) ``python -m eegan_tpu_torch.train --distributed`` as one NCCL
-    rank (EEGAN_NUM_PROCESSES=1) on phase 14's demo corpus, cfg/bird.yml
-    bf16 B=32, NCCL_ITERS iterations: the mesh path's collectives on NCCL;
-    its images/s."""
+def start_nccl_cli(tmp: str, data_dir: str):
+    """Start phase 18b in the background: ``python -m eegan_tpu_torch.train
+    --distributed`` as one NCCL rank (EEGAN_NUM_PROCESSES=1) on phase 14's
+    demo corpus, cfg/bird.yml bf16 B=32, NCCL_ITERS iterations (the mesh
+    path's collectives on NCCL). It runs beside phases 15-16's CLIs, which
+    time nothing; :func:`phase_nccl_cli` waits for it."""
+    os.makedirs(tmp, exist_ok=True)
     port = _free_port()
     env = dict(os.environ, EEGAN_COORDINATOR=f"127.0.0.1:{port}",
                EEGAN_NUM_PROCESSES="1", EEGAN_PROCESS_ID="0")
-    t0 = time.perf_counter()
-    stdout = run_cli(
-        ["eegan_tpu_torch.train", "--distributed", "--max_epochs", "1",
-         "--max_iters", str(NCCL_ITERS), "--output_dir", "nccl",
-         "--set", f"SAVE_DIR={tmp}", "--set", f"DATA_DIR={data_dir}",
-         "--set", "TEXT.CAPTIONS_PER_IMAGE=2", "--set", "TEXT.DAMSM_NAME=''",
-         "--set", "RUNTIME.ALLOW_RANDOM_ENCODERS=true",
-         "--set", "RUNTIME.PALLAS_AFFINE=true",
-         "--set", "RUNTIME.PALLAS_DAMSM=true"], env=env)
-    cli_s = time.perf_counter() - t0
+    args = ["eegan_tpu_torch.train", "--distributed", "--max_epochs", "1",
+            "--max_iters", str(NCCL_ITERS), "--output_dir", "nccl",
+            "--set", f"SAVE_DIR={tmp}", "--set", f"DATA_DIR={data_dir}",
+            "--set", "TEXT.CAPTIONS_PER_IMAGE=2",
+            "--set", "TEXT.DAMSM_NAME=''",
+            "--set", "RUNTIME.ALLOW_RANDOM_ENCODERS=true",
+            "--set", "RUNTIME.PALLAS_AFFINE=true",
+            "--set", "RUNTIME.PALLAS_DAMSM=true"]
+    out, err = (open(os.path.join(tmp, f"cli.{k}"), "w+")
+                for k in ("out", "err"))
+    proc = background(subprocess.Popen(
+        [sys.executable, "-m", *args], cwd=ROOT, stdout=out, stderr=err,
+        text=True, env=env))
+    return dict(tmp=tmp, proc=proc, out=out, err=err,
+                t0=time.perf_counter())
+
+
+def phase_nccl_cli(job):
+    """(18b) wait for :func:`start_nccl_cli`'s run and check it: rank 0 of
+    1 on the NCCL backend, a finite images/s per epoch (taken beside other
+    CLIs: not a rate), its checkpoint, generator and metrics."""
+    tmp, proc = job["tmp"], job["proc"]
+    try:
+        proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    cli_s = time.perf_counter() - job["t0"]
+    stdout, stderr = job["out"], job["err"]
+    for f in (stdout, stderr):
+        f.seek(0)
+    stdout, stderr = stdout.read(), stderr.read()
+    job["out"].close()
+    job["err"].close()
+    if proc.returncode != 0:
+        fail(f"train --distributed exit {proc.returncode}:\n"
+             f"{stdout[-4000:]}\n{stderr[-4000:]}")
     if "rank 0 of 1" not in stdout or "backend nccl" not in stdout:
         fail(f"train --distributed did not run as NCCL rank 0 of 1:\n"
              f"{stdout[-2000:]}")
@@ -2768,9 +3109,11 @@ def phase_nccl_cli(tmp: str, data_dir: str):
             fail(f"train --distributed did not write {rel}")
     log(f"phase 18 nccl ok: train --distributed, one NCCL rank, "
         f"{NCCL_ITERS} iterations B={TRAIN_BATCH} bf16: {rates[-1]} "
-        f"images/s ({cli_s:.1f} s with start-up)")
+        f"images/s beside phases 15-16's CLIs ({cli_s:.1f} s with "
+        f"start-up)")
     return dict(images_per_s=rates[-1], iterations=NCCL_ITERS,
-                batch=TRAIN_BATCH, dtype="bfloat16", cli_s=cli_s)
+                batch=TRAIN_BATCH, dtype="bfloat16", cli_s=cli_s,
+                beside="phases 15-16's CLIs")
 
 # ---------------------------------------------------------------------------
 # The learning probes (phase 20)
@@ -2781,6 +3124,7 @@ def phase_nccl_cli(tmp: str, data_dir: str):
 # the words probe).
 PROBE_ENV = {"EEGAN_PROBE_PAFFINE": "1", "EEGAN_PROBE_UPFUSE": "1"}
 PROBE_STEPS, PROBE_DAMSM_STEPS, PROBE_TRACED = 40, 20, 3
+PROBE_WORDS_STEPS = 20  # each arm
 
 
 def probe_recorder(records):
@@ -2794,8 +3138,14 @@ def probe_recorder(records):
 
     def recording(step_fn, state, frozen, pool, steps, noise, probe, **kw):
         rec = {"launches": [], "metrics": []}
+        capture = not records  # the colour probe: its states for A1
+        if capture:
+            rec["frozen"] = frozen
+            rec["states"] = [("step 0", state_snapshot(state, "cuda"))]
 
         def step(*args):
+            if capture and "inputs" not in rec:
+                rec["inputs"] = [(args[2], args[3].clone())]
             before = read_counts()
             out = step_fn(*args)
             after = read_counts()
@@ -2806,6 +3156,11 @@ def probe_recorder(records):
         out = real(step, state, frozen, pool, steps, noise, probe, **kw)
         rec["ms_per_step"] = out.train_s / out.steps * 1e3
         b = pool[0]["caps"].shape[0]
+        if capture:
+            rec["states"].append((f"step {steps}",
+                                  state_snapshot(state, "cuda")))
+            rec["inputs"].append((pool[(steps + 1) % len(pool)],
+                                  noise(steps + 1, b)))
         rec["profile"] = profile_steps(
             lambda: step_fn(state, frozen, pool[1], noise(0, b)),
             PROBE_TRACED, rec["ms_per_step"])
@@ -2830,6 +3185,36 @@ def probe_summary(rec, result, keys):
             "idle_share": prof["idle_share_vs_untraced_step"],
             "launches_per_step": per_step, "steps": len(launches),
             "result": {k: result[k] for k in keys}}
+
+
+def probe_switch_checks(rec):
+    """A1 at the probes' configuration (GF_DIM = DF_DIM = 16, B = 32,
+    float32): from the colour probe's state before its first GAN step and
+    after its last, each with the step's own batch and noise, kernels 1-2
+    on against off (:func:`affine_switch_check`) with RUNTIME.FUSED_UPSAMPLE
+    on and off."""
+    from eegan_tpu_torch import validate_learning
+    from eegan_tpu_torch.training import probes
+    from eegan_tpu_torch.training.state import create_train_state
+    from eegan_tpu_torch.training.steps import make_train_step
+
+    out = {}
+    for upfuse in (True, False):
+        config = validate_learning.build_config(overrides=[
+            "RUNTIME.PALLAS_AFFINE=true",
+            f"RUNTIME.FUSED_UPSAMPLE={str(upfuse).lower()}"])
+        models = probes.build_probe_models(
+            config, validate_learning.ColorDataset(config).n_words, 0,
+            "cuda")
+        state, _ = create_train_state(config, models)
+        step_fn = make_train_step(config, models)
+        for (label, snap), (batch, noise) in zip(rec["states"],
+                                                 rec["inputs"]):
+            state_restore(state, snap)
+            key = f"UPFUSE={int(upfuse)}, {label}"
+            out[key] = affine_switch_check(f"phase 20 ({key})", step_fn,
+                                           state, rec["frozen"], batch, noise)
+    return out
 
 
 def phase_probes(tmp: str):
@@ -2872,7 +3257,7 @@ def phase_probes(tmp: str):
         color_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         words = validate_words.main(
-            [str(PROBE_STEPS), "--arm", "both", "--pallas", "1",
+            [str(PROBE_WORDS_STEPS), "--arm", "both", "--pallas", "1",
              "--damsm_steps", str(PROBE_DAMSM_STEPS), "--no_check",
              "--device", "cuda"])
         words_s = time.perf_counter() - t0
@@ -2924,8 +3309,11 @@ def phase_probes(tmp: str):
         "train_ms_per_step", "damsm_ms_per_step", "sweep_s")}
     out["is_finetune"] = {k: is_ft[k] for k in (
         "final_acc", "is_good", "is_noise", "passed", "step_ms")}
+    t0 = time.perf_counter()
+    out["moments"] = probe_switch_checks(records[0])
     out["seconds"] = {"colour": color_s, "words": words_s,
                       "rprecision": rprec_s, "is_finetune": is_s,
+                      "moments": time.perf_counter() - t0,
                       "total": seconds}
     log(f"phase 20 ok: the probes at a few steps in {seconds:.1f} s; ms per "
         f"GAN step {out['colour']['ms_per_step']:.2f} (colour), "
@@ -2935,6 +3323,285 @@ def phase_probes(tmp: str):
         f"launches per step {out['colour']['launches_per_step']} (off arm "
         f"{out['off']['launches_per_step']})")
     return out
+
+
+EVAL_MESH_IMAGES = 256  # phase 21's sweep, float32, B=32 (16 per rank)
+EVAL_MESH_SEED = 21
+FT_MESH_BATCH = 32  # phase 21's IS fine-tune step, global
+
+
+def eval_mesh_run(inputs, mesh=None):
+    """Phase 21's work in one process, or on one rank of ``mesh``
+    (float32, TF32 off): the sweep of EVAL_MESH_IMAGES images with PNGs and
+    R-precision (each batch's images, codes and similarities recorded,
+    kernel launches counted), on a rank the sweep timed without and with
+    PNGs, and one IS fine-tune step at the global batch in float32 and in
+    float64 (its metrics, Adam moments and running statistics). In one
+    process also a second float32 fine-tune step from the same start (the
+    card's spread)."""
+    import torch
+
+    from eegan_tpu_torch.evaluation import inception_finetune
+    from eegan_tpu_torch.models.factory import to_float64_
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    config = trainer_config(inputs["data_dir"], "float32")
+    tester = eval_tester(config, "cuda", inputs["model_dir"], TRAIN_BATCH,
+                         mesh)
+    imgs, sims = [], []
+    sample, similarities = tester.sample_step, tester._similarities
+    tester.sample_step = recorded(sample, imgs)
+    tester._similarities = recorded(similarities, sims)
+    zero_counts()
+    result = tester.generate(inputs["png_dir"], sampling_nums=EVAL_MESH_IMAGES,
+                             seed=EVAL_MESH_SEED, compute_r_precision=True,
+                             r_val=R_VAL)
+    torch.cuda.synchronize()
+    out = dict(result=result, launches=read_counts(),
+               imgs=[o[-1].float().cpu() for o in imgs],
+               codes=[c for c, _ in sims], sims=[s for _, s in sims])
+    tester.sample_step, tester._similarities = sample, similarities
+    seconds = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for pngs in (False, True) if mesh is not None else ():
+            mesh.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tester.generate(os.path.join(tmp, str(pngs)),
+                            sampling_nums=EVAL_MESH_IMAGES,
+                            seed=EVAL_MESH_SEED + 1, compute_r_precision=True,
+                            r_val=R_VAL, saving_images=pngs)
+            torch.cuda.synchronize()
+            seconds[pngs] = time.perf_counter() - t0
+    out["sweep_s"] = seconds.get(False)
+    out["sweep_with_pngs_s"] = seconds.get(True)
+
+    def finetune(float64=False):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(SEED + 21)
+            model = inception_finetune.build_is_model(config, "cuda")
+        batch = inputs["ft_batch"]
+        if mesh is not None:
+            batch = mesh.shard_batch(batch)
+        batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+        if float64:
+            to_float64_(model)
+            batch["img256"] = batch["img256"].double()
+        step, init_opt = inception_finetune.make_finetune_step(
+            config, model, mesh=mesh)
+        opt = init_opt(model)
+        metrics = {k: float(v) for k, v in step(opt, batch).items()}
+        return dict(metrics=metrics,
+                    grads={n: opt.state[p]["exp_avg"].double().cpu()
+                           for n, p in model.named_parameters()},
+                    stats={k: v.double().cpu()
+                           for k, v in model.state_dict().items()
+                           if "running_" in k})
+
+    out["finetune"] = finetune()
+    out["finetune_float64"] = finetune(float64=True)
+    if mesh is None:
+        out["finetune_rerun"] = finetune()
+    return out
+
+
+def _eval_rank(rank: int, port: int, in_path: str, out_path: str) -> None:
+    """Rank ``rank`` of phase 21's two gloo ranks on one card."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from eegan_tpu_torch.parallel import distributed
+    from eegan_tpu_torch.parallel.mesh import Mesh
+
+    distributed.initialize(f"127.0.0.1:{port}", MESH_RANKS, rank,
+                           device="cuda", backend="gloo")
+    try:
+        inputs = torch.load(in_path, weights_only=False)
+        torch.save(eval_mesh_run(inputs, Mesh.current("cuda:0")),
+                   f"{out_path}.{rank}")
+    finally:
+        distributed.shutdown()
+
+
+def png_gaps(got_dir: str, want_dir: str):
+    """(names equal, largest pixel gap, share of pixels that differ) of two
+    PNG folders."""
+    import numpy as np
+    from PIL import Image
+
+    names = [sorted(f for f in os.listdir(d) if f.endswith(".png"))
+             for d in (got_dir, want_dir)]
+    worst, differ, total = 0, 0, 0
+    for name in names[1]:
+        if name not in names[0]:
+            continue
+        a, b = (np.asarray(Image.open(os.path.join(d, name))).astype(int)
+                for d in (got_dir, want_dir))
+        gap = np.abs(a - b)
+        worst = max(worst, int(gap.max()))
+        differ += int((gap > 0).sum())
+        total += gap.size
+    return names[0] == names[1], worst, differ / max(total, 1), len(names[1])
+
+
+def phase_eval_mesh(tmp: str, cli):
+    """(21) evaluation over the mesh: two gloo ranks on the one card
+    (``Tester(mesh=...)``, ``make_finetune_step(mesh=...)``) against one
+    process, on phase 14's corpus and epoch-1 snapshot, float32, TF32 off:
+    the sweep of EVAL_MESH_IMAGES images at B=32 (16 rows per rank) with
+    PNGs, the images and codes within 1e-3 of their largest, the hits equal
+    where the top two similarities differ by more than 1e-3, R-precision
+    within the near ties, 14 launches of kernel 1 per rank per batch, the
+    PNG folders the same files within one level in at most 1% of pixels;
+    the sweep's images/s on the two ranks without and with PNGs; one IS
+    fine-tune step at global B=32: loss rtol 1e-4, the head's gradient
+    within 1e-3 relative L2, the whole network's within twice the larger
+    of the card's rerun spread and the float32 step's distance from
+    float64, each running statistic within the larger of 1e-4 of its
+    largest and twice that float64 distance; the same step in float64 on
+    the ranks and in one process, where rounding no longer hides a fault:
+    the gradient (Adam's first moment) within 1e-5 relative L2 over the
+    network and in each tensor; and ``cli``, what the ``test``
+    CLI with ``--set RUNTIME.MESH=data:2`` gave in phase 16's group of
+    CLIs (its two ranks share the card through gloo)."""
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from eegan_tpu_torch.data.synthetic import synthetic_batch
+
+    t_start = time.perf_counter()
+    data_dir = os.path.join(tmp, "trainer", "data")
+    model_dir = os.path.join(tmp, "trainer", "run", "Model")
+    work = os.path.join(tmp, "eval_mesh")
+    os.makedirs(work, exist_ok=True)
+    config = trainer_config(data_dir, "float32")
+    ft_batch = synthetic_batch(config, FT_MESH_BATCH, seed=SEED + 21)
+    inputs = dict(data_dir=data_dir, model_dir=model_dir,
+                  ft_batch={k: ft_batch[k] for k in ("img256", "class_ids")})
+    in_path, out_path = (os.path.join(work, "in.pt"),
+                         os.path.join(work, "out"))
+    torch.save(dict(inputs, png_dir=os.path.join(work, "mesh")), in_path)
+    t0 = time.perf_counter()
+    mp.start_processes(_eval_rank, args=(_free_port(), in_path, out_path),
+                       nprocs=MESH_RANKS, join=True, start_method="spawn")
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(f"{out_path}.{r}", weights_only=False)
+             for r in range(MESH_RANKS)]
+    saved = read_counts()
+    one = eval_mesh_run(dict(inputs, png_dir=os.path.join(work, "one")))
+    set_counts(saved)
+
+    batches = EVAL_MESH_IMAGES // TRAIN_BATCH
+    want_launches = launches_of(affine_mask_relu=14 * batches)
+    for r, got in enumerate(ranks):
+        if got["launches"] != want_launches:
+            fail(f"phase 21: rank {r} launched {got['launches']}, want "
+                 f"{want_launches}")
+    img_err = max(float((torch.cat([r["imgs"][i] for r in ranks]) - w)
+                        .abs().max()) / float(w.abs().max())
+                  for i, w in enumerate(one["imgs"]))
+    rel = lambda got, want: max(float(np.abs(g - w).max() / np.abs(w).max())
+                                for g, w in zip(got, want))
+    code_err = max(rel(r["codes"], one["codes"]) for r in ranks)
+    sim_err = max(rel(r["sims"], one["sims"]) for r in ranks)
+    ties = 0
+    for r in ranks:
+        for got, want in zip(r["sims"], one["sims"]):
+            top2 = np.sort(want, axis=1)[:, -2:]
+            close = top2[:, 1] - top2[:, 0] <= 1e-3
+            ties += int(close.sum())
+            differ = (np.argmax(got, 1) == 0) != (np.argmax(want, 1) == 0)
+            if (differ & ~close).any():
+                fail(f"phase 21: R-precision hits differ: {got} vs {want}")
+    if img_err > 1e-3 or code_err > 1e-3 or sim_err > 1e-3:
+        fail(f"phase 21: the ranks' sweep against one process: images "
+             f"{img_err}, codes {code_err}, similarities {sim_err}")
+    means = [r["result"]["r_precision_mean"] for r in ranks]
+    want_mean = one["result"]["r_precision_mean"]
+    # A flipped hit moves the mean of 10 clusters' rates by at most this.
+    flip = 1 / (10 * (EVAL_MESH_IMAGES // 10))
+    if means[0] != means[1] or abs(means[0] - want_mean) > ties * flip \
+            + 1e-9:
+        fail(f"phase 21: R-precision {means} against {want_mean} with "
+             f"{ties} near ties")
+    same, px_gap, px_share, n_png = png_gaps(os.path.join(work, "mesh"),
+                                             os.path.join(work, "one"))
+    if not same or n_png != EVAL_MESH_IMAGES or px_gap > 1 \
+            or px_share > 1e-2:
+        fail(f"phase 21: PNG folders: same names {same} ({n_png}), largest "
+             f"pixel gap {px_gap}, share differing {px_share}")
+
+    # One IS fine-tune step at the global batch.
+    want = one["finetune"]
+    dist = lambda a, b, keys: float(
+        torch.cat([a[k].reshape(-1) - b[k].reshape(-1) for k in keys]).norm()
+        / torch.cat([b[k].reshape(-1) for k in keys]).norm())
+    names = list(want["grads"])
+    head = [n for n in names if n.startswith("fc.")]
+    spread = dist(one["finetune_rerun"]["grads"], want["grads"], names)
+    f64 = dist(want["grads"], one["finetune_float64"]["grads"], names)
+    yardstick = max(spread, f64)
+    ft = {}
+    for r, got in enumerate(ranks):
+        g = got["finetune"]
+        loss, want_loss = (g["metrics"]["is_finetune/loss"],
+                           want["metrics"]["is_finetune/loss"])
+        whole = dist(g["grads"], want["grads"], names)
+        head_gap = dist(g["grads"], want["grads"], head)
+        stat_bad = []
+        for k, v in want["stats"].items():
+            bar = max(1e-4 * float(v.abs().max()), 2 * float(
+                (v - one["finetune_float64"]["stats"][k]).abs().max()))
+            if float((g["stats"][k] - v).abs().max()) > bar:
+                stat_bad.append(k)
+        g64, w64 = got["finetune_float64"], one["finetune_float64"]
+        whole64 = dist(g64["grads"], w64["grads"], names)
+        worst64 = max(dist(g64["grads"], w64["grads"], [n]) for n in names)
+        ft[f"rank{r}"] = dict(loss=loss, whole_network=whole,
+                              head=head_gap, stats_beyond_bar=stat_bad,
+                              whole_network_float64=whole64,
+                              worst_tensor_float64=worst64)
+        if not math.isclose(loss, want_loss, rel_tol=1e-4) \
+                or head_gap > 1e-3 or whole > 2 * yardstick or stat_bad \
+                or whole64 > 1e-5 or worst64 > 1e-5:
+            fail(f"phase 21: fine-tune step rank {r} against one process: "
+                 f"loss {loss} vs {want_loss}, head {head_gap}, whole "
+                 f"{whole} (bar {2 * yardstick}), running stats beyond "
+                 f"their bars {stat_bad[:5]}; in float64 whole {whole64}, "
+                 f"worst tensor {worst64} (bar 1e-5)")
+
+    def ips(key, runs):
+        return EVAL_MESH_IMAGES / max(run[key] for run in runs)
+
+    times = dict(
+        ranks_images_per_s=ips("sweep_s", ranks),
+        ranks_images_per_s_with_pngs=ips("sweep_with_pngs_s", ranks))
+    result = dict(
+        images=EVAL_MESH_IMAGES, batch=TRAIN_BATCH, dtype="float32",
+        ranks=MESH_RANKS, backend="gloo", image_rel_err=img_err,
+        code_rel_err=code_err, similarity_rel_err=sim_err, near_ties=ties,
+        r_precision={"ranks": means[0], "one_process": want_mean},
+        launches_per_rank=ranks[0]["launches"],
+        png={"files": n_png, "largest_pixel_gap": px_gap,
+             "share_differing": px_share},
+        finetune=dict(batch=FT_MESH_BATCH, rerun_spread=spread,
+                      float64_distance=f64, **ft),
+        cli=cli,
+        times=times, ranks_s=ranks_s,
+        seconds=time.perf_counter() - t_start)
+    log(f"phase 21 ok: evaluation over two gloo ranks on one card against "
+        f"one process: sweep of {EVAL_MESH_IMAGES} images, images "
+        f"{img_err}, codes {code_err}, similarities {sim_err} (near ties "
+        f"{ties}), R-precision {means[0]} vs {want_mean}, kernel 1 "
+        f"{ranks[0]['launches']['affine_mask_relu']} launches per rank; "
+        f"PNGs {n_png} files, {px_share} of pixels one level off; fine-tune "
+        f"step {ft} (rerun spread {spread}, float64 distance {f64}); test "
+        f"CLI over data:2 (phase 16's group) {cli}; images/s "
+        f"{times} (both ranks share the card: no scaling figure); "
+        f"{result['seconds']:.1f} s")
+    return result
 
 
 def main() -> None:
@@ -2948,7 +3615,6 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
     sys.path.insert(0, ROOT)
-    from eegan_tpu_torch.ops import _build
 
     smi = nvidia_smi()
     name = torch.cuda.get_device_name(0)
@@ -2957,14 +3623,17 @@ def main() -> None:
                gpu=name, nvidia_smi=smi, device_count=torch.cuda.device_count())
     log("env " + json.dumps(env))
 
-    t0 = time.perf_counter()
-    built = _build.build(_build.sources())
-    build_s = time.perf_counter() - t0
-    for lib_name, path in built.items():
-        ptxas = [ln.strip() for ln in path.with_suffix(".log").read_text()
-                 .splitlines() if "registers" in ln]
-        log(f"phase 2 ok: built {lib_name} -> {path.name} in {build_s:.1f} s; "
-            f"ptxas: {ptxas[:6]}")
+    watch = Stopwatch()
+    # The build runs beside phase 15's DAMSM step parity, which launches no
+    # kernel (it sets TF32 off; the later phases start from the defaults).
+    build = start_build()
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    damsm_parity = watch("phase 15 DAMSM step parity, beside the build",
+                         phase_damsm_parity)
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = tf32
+    build_s = watch("phase 2 build, the rest of it", finish_build, build)
 
     from eegan_tpu_torch.config import fresh_config
 
@@ -2974,34 +3643,58 @@ def main() -> None:
 
     probe_config = build_config()
     probe = (probe_config.GAN.GF_DIM, probe_config.TRAIN.BATCH_SIZE)
-    err_f32, err_bf16, zeros_differ = phase_kernel_vs_plain(ngf, train_ngf,
-                                                            probe)
-    bwd_err = phase_affine_backward(train_ngf, probe)
-    damsm_err = phase_damsm_kernels()
-    parity = phase_train_parity()
-    bf16_train, train = phase_train_bf16()
-    slice_result, (step_bf16, models_bf16, inputs) = phase_slice(ngf)
-    phase_cli()
-    rows, step, step_ms = phase_times(ngf, step_bf16, models_bf16, inputs)
-    breakdown = phase_breakdown(step_bf16, models_bf16, inputs, step["kernel"])
-    fwd_rows, bwd_rows, damsm_rows, train_ms, train_runs = phase_train_times(
-        train_ngf, train)
-    train_breakdown = phase_train_breakdown(train, train_ms)
+    err_f32, err_bf16, zeros_differ = watch(
+        "phase 3", phase_kernel_vs_plain, ngf, train_ngf, probe)
+    bwd_err = watch("phase 8", phase_affine_backward, train_ngf, probe)
+    damsm_err = watch("phase 9", phase_damsm_kernels)
+    parity = watch("phase 10", phase_train_parity)
+    bf16_train, train = watch("phase 11", phase_train_bf16)
+    slice_result, (step_bf16, models_bf16, inputs) = watch(
+        "phase 4", phase_slice, ngf)
+    watch("phase 5", phase_cli)
+    rows, step, step_ms = watch("phase 6", phase_times, ngf, step_bf16,
+                                models_bf16, inputs)
+    breakdown = watch("phase 7", phase_breakdown, step_bf16, models_bf16,
+                      inputs, step["kernel"])
+    fwd_rows, bwd_rows, damsm_rows, train_ms, train_runs = watch(
+        "phase 12", phase_train_times, train_ngf, train)
+    train_breakdown = watch("phase 13", phase_train_breakdown, train,
+                            train_ms)
     del train
     with tempfile.TemporaryDirectory() as tmp:
-        trainer = phase_trainer(os.path.join(tmp, "trainer"))
-        clis = phase_clis(os.path.join(tmp, "clis"))
-        evaluation = phase_eval(os.path.join(tmp, "trainer"))
-        damsm_parity = phase_damsm_parity()
-        remat = phase_remat()
-        mesh_step, mesh_ctx = phase_mesh_step(tmp)
-        mesh = dict(step=mesh_step,
-                    nccl_cli=phase_nccl_cli(
-                        os.path.join(tmp, "nccl"),
-                        os.path.join(tmp, "trainer", "data")))
-        fsdp = phase_fsdp_step(tmp, mesh_ctx)
+        trainer_dir = os.path.join(tmp, "trainer")
+        data_dir = os.path.join(trainer_dir, "data")
+        model_dir = os.path.join(trainer_dir, "run", "Model")
+        eval_dir = os.path.join(trainer_dir, "eval")
+        trainer = watch("phase 14", phase_trainer, trainer_dir)
+        # Phase 18's NCCL CLI runs beside the CLIs and the parity check
+        # of phases 15-16, which time nothing; this process gives back
+        # its cached device memory to the CLIs first.
+        gc.collect()
+        torch.cuda.empty_cache()
+        nccl_job = start_nccl_cli(os.path.join(tmp, "nccl"), data_dir)
+        clis = watch("phase 15 CLIs", phase_clis, os.path.join(tmp, "clis"))
+        os.makedirs(eval_dir, exist_ok=True)
+        evaluation = dict(
+            parity=watch("phase 16 parity", phase_eval_parity, data_dir,
+                         model_dir),
+            clis=watch("phase 16 CLIs", phase_eval_clis, eval_dir,
+                       data_dir, model_dir))
+        nccl_cli = watch("phase 18 NCCL CLI, the rest of it",
+                         phase_nccl_cli, nccl_job)
+        evaluation["times"] = watch("phase 16 times", phase_eval_times,
+                                    data_dir, model_dir)
+        evaluation["overlap"] = watch("phase 16 overlap", phase_eval_overlap,
+                                      eval_dir, data_dir)
+        remat = watch("phase 17", phase_remat)
+        mesh_step, mesh_ctx = watch("phase 18 mesh", phase_mesh_step, tmp)
+        mesh = dict(step=mesh_step, nccl_cli=nccl_cli)
+        fsdp = watch("phase 19", phase_fsdp_step, tmp, mesh_ctx)
         del mesh_ctx
-        probe_runs = phase_probes(os.path.join(tmp, "probes"))
+        probe_runs = watch("phase 20", phase_probes,
+                           os.path.join(tmp, "probes"))
+        eval_mesh = watch("phase 21", phase_eval_mesh, tmp,
+                          evaluation["clis"]["test_mesh"])
 
     card = {"gpu": name, "nvidia_smi": smi}
     step_line = {"sample_step": {
@@ -3027,9 +3720,10 @@ def main() -> None:
                "damsm": damsm_rows, **step_line, **train_line,
                **trainer_line, "clis": clis, "damsm_step_parity": damsm_parity,
                "evaluation": evaluation, "remat": remat, "mesh": mesh,
-               "fsdp": fsdp, "probes": probe_runs,
+               "fsdp": fsdp, "probes": probe_runs, "eval_mesh": eval_mesh,
                "breakdown": breakdown, "train_breakdown": train_breakdown,
                "bf16_train_metrics": bf16_train["metrics"],
+               "build_s": build_s, "phase_seconds": watch.seconds,
                "checks": {"affine_max_abs_err": {"float32": err_f32,
                                                  "bfloat16": err_bf16},
                           "affine_relu_zeros_differ_f32": zeros_differ,
@@ -3063,7 +3757,11 @@ def main() -> None:
             "at_rest", "data_parallel_at_rest", "state_bytes_ratio",
             "memory_allocated_ratio")} for r in range(MESH_RANKS)}},
         **card}))
-    log(json.dumps({"probes": probe_runs, **card}))
+    log(json.dumps({"probes": {
+        **{k: v for k, v in probe_runs.items() if k != "moments"},
+        "moments": {k: {m: v[m] for m in ("max_b", "max_c", "per_optimizer")}
+                    for k, v in probe_runs["moments"].items()}}, **card}))
+    log(json.dumps({"eval_mesh": eval_mesh, **card}))
     for key, value in (("breakdown", breakdown),
                        ("train_breakdown", train_breakdown)):
         log(json.dumps({key: {k: v for k, v in value.items()
@@ -3139,6 +3837,11 @@ def main() -> None:
             probe_runs["colour"]["launches_per_step"][row["name"]]
         row["launches_probe_step_off_arm"] = \
             probe_runs["off"]["launches_per_step"][row["name"]]
+        row["launches_eval_mesh_rank_batch"] = \
+            eval_mesh["launches_per_rank"][row["name"]] // (
+                EVAL_MESH_IMAGES // TRAIN_BATCH)
+    log(json.dumps({"phase_seconds": watch.seconds,
+                    "total_s": watch.total()}))
     log(json.dumps(kernels))
     log(smi)
     log(json.dumps({"ok": True, "device": {

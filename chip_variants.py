@@ -2,6 +2,15 @@
 """Time variants of three of the port's CUDA kernels on one NVIDIA GPU.
 
     python3 chip_variants.py        # from the repository root, one CUDA card
+    python3 chip_variants.py --trajectory
+
+``--trajectory`` runs ``chip_smoke.py``'s phase 10 (the float32 train
+step against the CPU's, and kernels 1-2 on against off by the Adam
+moments of every tensor, beside a second kernels-on run), then a
+3000-step colour-probe run with kernels 1-4 on whose state it saves every
+250 steps, and the same moment check from each of the 12 states with the
+probe's own next batch and noise (PERF.md §2's bar, reported per state
+without stopping); about 15 minutes. Without it:
 
 Each variant is an edited copy of a ``csrc/*.cu`` source (text
 substitutions), built with the port's nvcc flags, all at once, into
@@ -307,9 +316,84 @@ def time_d_convs(cs, torch):
     return out
 
 
+TRAJECTORY_ENV = {"EEGAN_PROBE_PAFFINE": "1", "EEGAN_PROBE_UPFUSE": "0"}
+TRAJECTORY_STEPS = 3000
+
+
+def affine_trajectory(cs, torch):
+    """Kernels 1-2 held along a trained trajectory: one colour-probe run
+    (``validate_learning.run``, seed 0, 3000 GAN steps) with kernels 1-4
+    on and the JAX script's other switches (RUNTIME.FUSED_UPSAMPLE off,
+    PALLAS_DAMSM on, PyTorch's TF32 defaults), its state saved at each of
+    the 12 probes (``probes.train_and_probe``'s ``snapshot``); then from
+    each state, with the colour probe's own next batch and noise,
+    ``chip_smoke.affine_switch_check``: kernels 1-2 on against off and a
+    second run on, per tensor, without stopping at a tensor beyond the
+    bar."""
+    from eegan_tpu_torch import validate_learning
+    from eegan_tpu_torch.training import probes
+    from eegan_tpu_torch.training.state import create_train_state
+    from eegan_tpu_torch.training.steps import make_train_step
+
+    os.environ.update(TRAJECTORY_ENV)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    config = validate_learning.build_config()
+    dev = torch.device("cuda")
+    draw = probes.gan_noise(config, 0, dev)
+    noises = {}
+
+    def noise(step, b):
+        z = draw(step, b)
+        if step % probes.PROBE_EVERY == 1:
+            noises[step] = z.clone()
+        return z
+
+    saved = []
+
+    def snapshot(done, state, frozen, pool):
+        saved.append((done, cs.state_snapshot(state, "cpu"), frozen, pool))
+
+    result = validate_learning.run(config, seed=0, steps=TRAJECTORY_STEPS,
+                                   device=dev, noise=noise,
+                                   snapshot=snapshot)
+    b = config.TRAIN.BATCH_SIZE
+    noises[TRAJECTORY_STEPS + 1] = draw(TRAJECTORY_STEPS + 1, b)
+    models = probes.build_probe_models(
+        config, validate_learning.ColorDataset(config).n_words, 0, dev)
+    state, _ = create_train_state(config, models)
+    step_fn = make_train_step(config, models)
+    states = {}
+    for done, snap, frozen, pool in saved:
+        cs.state_restore(state, snap)
+        check = cs.affine_switch_check(
+            f"trajectory step {done}", step_fn, state, frozen,
+            pool[(done + 1) % len(pool)], noises[done + 1], strict=False)
+        states[done] = {k: check[k] for k in (
+            "within_bar", "beyond_bar", "max_b", "max_c", "per_optimizer",
+            "nondeterministic_ops")}
+        states[done]["worst"] = check["worst"][0]
+        print(json.dumps({"trajectory_state": done, **states[done]}),
+              flush=True)
+    return {"switches": {**TRAJECTORY_ENV, "RUNTIME.PALLAS_DAMSM": True,
+                         "dtype": "float32"},
+            "run": {k: result[k] for k in (
+                "best", "best_step", "final", "passed", "separation",
+                "train_ms_per_step", "damsm_ms_per_step")},
+            "states": states}
+
+
 def main() -> None:
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--trajectory", action="store_true",
+                        help="phase 10 of chip_smoke.py, then kernels 1-2 "
+                             "held along a colour-probe run instead of the "
+                             "kernel variants")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_variants: FAIL: this script needs a GPU", file=sys.stderr)
         sys.exit(1)
@@ -317,6 +401,14 @@ def main() -> None:
     import chip_smoke as cs
     from eegan_tpu_torch.ops import _build, affine, damsm
 
+    if args.trajectory:
+        _build.build(_build.sources())
+        result = dict(phase_10=cs.phase_train_parity()["moments"],
+                      trajectory=affine_trajectory(cs, torch),
+                      gpu=torch.cuda.get_device_name(0))
+        print(json.dumps(result))
+        print(cs.nvidia_smi())
+        return
     built = build_all(_build)
     for tag, (_, lines) in built.items():
         for ln in lines:

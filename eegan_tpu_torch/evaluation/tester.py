@@ -23,8 +23,15 @@ hit iff it ranks first, mean±std over 10 clusters (reference
 * PNGs are written by a background thread, so generation never waits on
   PNG encoding.
 
-One device: the JAX package's mesh argument is the parallel item of
-ROADMAP.md Queue 1.
+Over a ``mesh`` of R ranks (``parallel/mesh.py``; the JAX package shards
+the same work over ``batch_axes(mesh)``) every rank makes the same numpy
+draws and the same whole-batch noise, and takes its B/R rows of each
+batch: it generates them, encodes their images and captions and its rows
+of each caption-cache chunk, and gathers the (rows, D) codes, so every
+rank scores the same hits and a rank's images are the one-process run's
+rows. Each rank's writer thread writes its own rows under the global file
+names: the folder is the one-process folder, file for file. ``sweep``
+waits for every rank after each epoch, and only rank 0 prints.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ import torch
 from eegan_tpu_torch.config import Config
 from eegan_tpu_torch.data.datasets import TextOnlyDataset, pad_caption
 from eegan_tpu_torch.models.factory import ModelBundle
+from eegan_tpu_torch.parallel.mesh import Mesh
 from eegan_tpu_torch.training.state import FrozenEncoders
 from eegan_tpu_torch.training.steps import make_sample_step
 from eegan_tpu_torch.training.trainer import noise_seed
@@ -55,13 +63,19 @@ class Tester:
     def __init__(self, config: Config, models: ModelBundle,
                  frozen: FrozenEncoders,
                  dataset: Optional[TextOnlyDataset] = None,
-                 batch_size: Optional[int] = None):
+                 batch_size: Optional[int] = None,
+                 mesh: Optional[Mesh] = None):
         self.config = config
         self.models = models
         self.frozen = frozen
         self.device = models.device
         self.dataset = dataset or TextOnlyDataset(config, split="test")
         self.batch_size = batch_size or config.TRAIN.BATCH_SIZE
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        if mesh is not None and self.batch_size % mesh.size != 0:
+            raise ValueError(
+                f"eval batch {self.batch_size} not divisible by "
+                f"{mesh.size} mesh devices")
         self.sample_step = make_sample_step(config, models)
         # Built on first use: one encode per test caption per Tester (the
         # frozen text encoder never changes).
@@ -80,17 +94,33 @@ class Tester:
                                device=self.device)
         return noise
 
+    def _rows(self, x):
+        """This rank's rows of a global batch (all of them without a
+        mesh)."""
+        return x if self.mesh is None else self.mesh.rows(x)
+
+    def _gathered(self, rows: torch.Tensor) -> np.ndarray:
+        """The ranks' (rows, D) codes as the global (B, D) array."""
+        rows = rows.float()
+        if self.mesh is not None:
+            rows = self.mesh.gather(rows)
+        return rows.cpu().numpy()
+
     def _encode_sents(self, caps: np.ndarray, lens: np.ndarray) -> np.ndarray:
+        """(B, D) sentence codes of a global batch of captions; each rank
+        encodes its rows."""
         with torch.inference_mode():
             _, sent = self.frozen.text_encoder(
-                torch.from_numpy(np.asarray(caps)).to(self.device),
-                torch.from_numpy(np.asarray(lens)))
-        return sent.float().cpu().numpy()
+                torch.from_numpy(self._rows(np.asarray(caps))).to(
+                    self.device),
+                torch.from_numpy(self._rows(np.asarray(lens))))
+            return self._gathered(sent)
 
     def _encode_image(self, img256: torch.Tensor) -> np.ndarray:
+        """(B, D) image codes of this rank's rows of a batch of images."""
         with torch.inference_mode():
             _, code = self.frozen.image_encoder(img256)
-        return code.float().cpu().numpy()
+            return self._gathered(code)
 
     # ------------------------------------------------------------------
     def _batches(self, total: int, rng: np.random.Generator):
@@ -128,10 +158,15 @@ class Tester:
         lens = np.zeros((n_caps,), np.int32)
         for i in range(n_caps):
             caps[i], lens[i] = pad_caption(ds.captions[i], t, rng)
+        if self.mesh is not None:
+            # Padded captions (length 1) make every chunk split evenly.
+            pad = (-n_caps) % self.mesh.size
+            caps = np.concatenate([caps, np.zeros((pad, t), np.int32)])
+            lens = np.concatenate([lens, np.ones((pad,), np.int32)])
         chunk = self.batch_size * max(1, 256 // self.batch_size)
         self._cap_cache = np.concatenate([
             self._encode_sents(caps[s:s + chunk], lens[s:s + chunk])
-            for s in range(0, n_caps, chunk)])
+            for s in range(0, len(caps), chunk)])[:n_caps]
         return self._cap_cache
 
     def _sample_wrong_indices(self, cls_ids: np.ndarray,
@@ -155,9 +190,10 @@ class Tester:
     def _similarities(self, batch, img256: torch.Tensor, r_val: int,
                       rng: np.random.Generator):
         """(code (B, D), sims (B, r_val)): the image codes of ``img256``
-        (on the device) and their cosine similarity to the true caption
-        (column 0) and r_val-1 wrong ones from the cache (reference
-        `cal_sim_one_by_one`, test.py:306-357)."""
+        (on the device; this rank's rows) and their cosine similarity to
+        the true caption (column 0) and r_val-1 wrong ones from the cache
+        (reference `cal_sim_one_by_one`, test.py:306-357), for the whole
+        batch."""
         cache = self._caption_cache(rng)
         wrong_idx = self._sample_wrong_indices(
             np.asarray(batch["class_ids"]), rng, r_val - 1)
@@ -186,7 +222,8 @@ class Tester:
         """Generate ``sampling_nums`` 256² images with the weights the
         modules hold, optionally scoring R-precision along the way. With
         ``saving_images=False`` nothing is written (reference
-        `--saving_image`, test.py:226-234)."""
+        `--saving_image`, test.py:226-234). Under a mesh ``noise_fn`` gives
+        the whole batch's noise on every rank; the result is every rank's."""
         rng = np.random.default_rng([seed])
         noise_fn = noise_fn or self.noise_fn(seed)
         hits: List[np.ndarray] = []
@@ -217,15 +254,20 @@ class Tester:
             for batch_idx, batch in enumerate(
                     self._batches(sampling_nums, rng)):
                 b = len(batch["caps"])
+                lo, hi = (0, b) if self.mesh is None \
+                    else self.mesh.row_range(b)
                 imgs = self.sample_step(
-                    batch["caps"], batch["cap_lens"], batch["attrs"],
-                    batch["attr_lens"], noise_fn(batch_idx, b))
+                    *(self._rows(batch[k]) for k in (
+                        "caps", "cap_lens", "attrs", "attr_lens")),
+                    self._rows(noise_fn(batch_idx, b)))
                 dev256 = imgs[-1]
                 take = min(b, sampling_nums - produced)
-                if saving_images:
+                mine = max(0, min(hi, take) - lo)
+                if saving_images and mine:
                     names = [f"{k.replace('/', '_')}_{batch_idx}_{j}"
                              for j, k in enumerate(batch["keys"])]
-                    q.put((dev256[:take].cpu().numpy(), names[:take]))
+                    q.put((dev256[:mine].cpu().numpy(),
+                           names[lo:lo + mine]))
                 if compute_r_precision:
                     hits.append(self._r_precision_batch(batch, dev256,
                                                         r_val, rng))
@@ -253,11 +295,13 @@ class Tester:
         """Epoch×repeat sweep (reference `Tester.main`, test.py:184-242);
         an epoch without a generator snapshot is skipped."""
         results = {}
+        main_rank = self.mesh is None or self.mesh.rank == 0
         available = set(ckpt_manager.available_generator_epochs())
         for epoch in select_epochs:
             if epoch not in available:
-                print(f"epoch {epoch}: no checkpoint under "
-                      f"{ckpt_manager.model_dir}")
+                if main_rank:
+                    print(f"epoch {epoch}: no checkpoint under "
+                          f"{ckpt_manager.model_dir}")
                 continue
             ckpt_manager.load_generator(epoch, self.models.generator,
                                         self.models.attr_enhance)
@@ -269,5 +313,8 @@ class Tester:
                     compute_r_precision=compute_r_precision,
                     saving_images=saving_images)
                 results[(epoch, r)] = res
-                print(f"Epoch_{epoch}_{r}: {res}")
+                if main_rank:
+                    print(f"Epoch_{epoch}_{r}: {res}")
+            if self.mesh is not None:
+                self.mesh.barrier()
         return results

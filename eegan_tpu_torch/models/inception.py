@@ -29,11 +29,23 @@ class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose train mode moves the running variance
     towards the biased batch variance, as flax's ``BatchNorm`` (the JAX
     package's Inception) does; torch's own takes the unbiased one. Eval
-    mode, and the normalisation in train mode, are torch's."""
+    mode, and the normalisation in train mode, are torch's.
+
+    With a ``mesh`` of more than one rank (``parallel/mesh.py``), train
+    mode takes the global batch's statistics: the float32 per-channel sum
+    and sum of squares go through the mesh's differentiable all-reduce, as
+    ``layers.TorchBatchNorm`` does, and the running statistics move towards
+    the global batch's mean and biased variance, as flax's batch norm over
+    the sharded batch does."""
+
+    mesh = None
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        mesh = self.mesh
+        if mesh is not None and mesh.size > 1:
+            return self._global_forward(x, mesh)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
             self.running_mean.lerp_(mean, self.momentum)
@@ -41,6 +53,24 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.num_batches_tracked.add_(1)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps)
+
+    def _global_forward(self, x, mesh):
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        moments = mesh.all_reduce_sum(torch.stack(
+            [xf.sum(dim=(0, 2, 3)), xf.square().sum(dim=(0, 2, 3))]))
+        count = x.numel() // x.shape[1] * mesh.size
+        mean = moments[0] / count
+        var = (moments[1] / count - mean.square()).clamp_min(0.0)
+        with torch.no_grad():
+            self.running_mean.lerp_(mean.to(self.running_mean.dtype),
+                                    self.momentum)
+            self.running_var.lerp_(var.to(self.running_var.dtype),
+                                   self.momentum)
+            self.num_batches_tracked.add_(1)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        shift = self.bias - mean * scale
+        return x * scale[:, None, None].to(x.dtype) \
+            + shift[:, None, None].to(x.dtype)
 
 
 class BasicConv2d(nn.Module):

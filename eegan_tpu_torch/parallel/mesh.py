@@ -98,19 +98,21 @@ def check_axes(spec: str) -> None:
             "ported (the port lays ranks out data-major, rank d*F + f)")
 
 
-def mesh_shape(spec: str, n_devices: Optional[int]) -> Tuple[int, int]:
+def mesh_shape(spec: str, n_devices: Optional[int], share: bool = False
+               ) -> Tuple[int, int]:
     """(D, F): the sizes of the spec's ``data`` and ``fsdp`` axes (1 where
     absent); the spec asks for D·F ranks. ``-1`` takes every one of
     ``n_devices`` (1 where that is None, the CPU). Raises for a spec that
-    needs more devices than ``n_devices`` (it never shrinks) and for an
-    axis that is not ported (:func:`check_axes`)."""
+    needs more devices than ``n_devices`` (it never shrinks), unless
+    ``share`` (the ranks then share the devices), and for an axis that is
+    not ported (:func:`check_axes`)."""
     check_axes(spec)
     names, sizes = parse_mesh_spec(spec, n_devices or 1)
     axes = dict(zip(names, sizes))
     data, fsdp = axes.get(DATA_AXIS, 1), axes.get(FSDP_AXIS, 1)
     if data < 1 or fsdp < 1:
         raise ValueError(f"mesh spec {spec!r}: axes of sizes {sizes}")
-    if n_devices is not None and data * fsdp > n_devices:
+    if n_devices is not None and data * fsdp > n_devices and not share:
         raise ValueError(f"mesh spec {spec!r} needs {data * fsdp} devices, "
                          f"have {n_devices}")
     return data, fsdp
@@ -135,11 +137,7 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh):
         ctx.mesh = mesh
-        lo, hi = mesh.row_range(x.shape[0] * mesh.size)
-        buf = x.new_zeros((x.shape[0] * mesh.size, *x.shape[1:]))
-        buf[lo:hi] = x
-        dist.all_reduce(buf, group=mesh.group)
-        return buf
+        return mesh.gather(x)
 
     @staticmethod
     def backward(ctx, dy):
@@ -228,6 +226,22 @@ class Mesh:
         order; each rank's gradient is its slice of the ranks' summed
         gradients. Integer tensors are gathered too (no gradient)."""
         return _AllGather.apply(x, self)
+
+    # -- without gradients -------------------------------------------------
+    @torch.no_grad()
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """:meth:`all_gather` without a gradient (inference tensors too):
+        the ranks' rows of a global batch, e.g. the evaluator's (B/R, D)
+        codes, in rank order on every rank."""
+        lo, hi = self.row_range(x.shape[0] * self.size)
+        buf = x.new_zeros((x.shape[0] * self.size, *x.shape[1:]))
+        buf[lo:hi] = x
+        dist.all_reduce(buf, group=self.group)
+        return buf
+
+    def barrier(self) -> None:
+        """Wait until every rank has reached this call."""
+        dist.barrier(group=self.group)
 
     # -- averaging -------------------------------------------------------
     @torch.no_grad()

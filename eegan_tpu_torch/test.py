@@ -12,12 +12,21 @@ into ``<SAVE_DIR>/<output_dir>/GenImage/Epoch_{e}_{r}/`` (with
 trainer writes them). The frozen encoders follow TEXT.DAMSM_NAME as in
 training (--debug allows random ones). Runs on ``--device cuda`` (default)
 and on the CPU only with ``--device cpu``.
+
+RUNTIME.MESH (``--set RUNTIME.MESH=data:N``; default ``data:-1``, every
+visible GPU) of N > 1 ranks splits each batch over N processes on this
+host, one per GPU (N CPU processes with ``--device cpu``; ranks beyond
+the GPUs share them through gloo), as ``train --mesh`` starts them
+(``parallel/distributed.spawn``): each rank generates,
+encodes and writes its rows (``Tester(mesh=...)``), and rank 0 prints the
+results. The batch must divide N.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 
 
 def parse_args(argv=None):
@@ -68,22 +77,9 @@ def parse_epochs(spec: str):
     return [int(p) for p in spec.split(",")]
 
 
-def main(argv=None):
-    args = parse_args(argv)
-
-    import torch
-
-    from eegan_tpu_torch import resolve_device
+def load_config(args):
     from eegan_tpu_torch.config import apply_overrides, fresh_config
-    from eegan_tpu_torch.data.datasets import TextOnlyDataset
-    from eegan_tpu_torch.evaluation.tester import Tester
-    from eegan_tpu_torch.models.factory import build_models
-    from eegan_tpu_torch.training.checkpoint import CheckpointManager
-    from eegan_tpu_torch.training.state import create_train_state
-    from eegan_tpu_torch.training.trainer import load_frozen_encoders
-    from eegan_tpu_torch.utils.images import mkdir_p
 
-    device = resolve_device(args.device)
     config = fresh_config(args.cfg_file)
     apply_overrides(config, args.overrides)
     if args.batch_size:
@@ -92,7 +88,52 @@ def main(argv=None):
         # Debug sweeps may run without the pretrained DAMSM encoders;
         # production sweeps hard-require them (load_frozen_encoders).
         config.RUNTIME.ALLOW_RANDOM_ENCODERS = True
+    return config
 
+
+def main(argv=None):
+    args = parse_args(argv)
+
+    import torch
+
+    from eegan_tpu_torch import resolve_device
+    from eegan_tpu_torch.parallel import distributed
+    from eegan_tpu_torch.parallel.mesh import mesh_shape
+
+    device = resolve_device(args.device)
+    config = load_config(args)
+    data, fsdp = mesh_shape(config.RUNTIME.MESH, torch.cuda.device_count()
+                            if device.type == "cuda" else None, share=True)
+    ranks = data * fsdp
+    if config.TRAIN.BATCH_SIZE % ranks:
+        raise SystemExit(f"batch size {config.TRAIN.BATCH_SIZE} not "
+                         f"divisible by {ranks} devices")
+    if ranks == 1:
+        evaluate(args, config, device)
+        return
+    distributed.spawn(_rank_main, sys.argv[1:] if argv is None else argv,
+                      ranks, device)
+
+
+def _rank_main(argv, device, mesh) -> None:
+    """One rank of a one-host mesh sweep (``distributed.spawn``)."""
+    args = parse_args(argv)
+    evaluate(args, load_config(args), device, mesh)
+
+
+def evaluate(args, config, device, mesh=None) -> None:
+    """The sweep on ``device`` (as one rank of ``mesh``, if given)."""
+    import torch
+
+    from eegan_tpu_torch.data.datasets import TextOnlyDataset
+    from eegan_tpu_torch.evaluation.tester import Tester
+    from eegan_tpu_torch.models.factory import build_models
+    from eegan_tpu_torch.training.checkpoint import CheckpointManager
+    from eegan_tpu_torch.training.state import create_train_state
+    from eegan_tpu_torch.training.trainer import load_frozen_encoders
+    from eegan_tpu_torch.utils.images import mkdir_p
+
+    main_rank = mesh is None or mesh.rank == 0
     out_root = os.path.join(config.SAVE_DIR or ".",
                             args.debug_output_dir if args.debug
                             else (args.output_dir or "eval"))
@@ -111,18 +152,21 @@ def main(argv=None):
     epochs = parse_epochs(args.select_epochs)
     available = ckpt.available_generator_epochs()
     epochs = [e for e in epochs if e in available] or available
-    print(f"evaluating epochs: {epochs}")
-    if not args.saving_image and not args.compare_sim:
-        print("note: neither --saving_image nor --compare_sim given — "
-              "generating without scoring or writing (reference behaviour)")
+    if main_rank:
+        print(f"evaluating epochs: {epochs}")
+        if not args.saving_image and not args.compare_sim:
+            print("note: neither --saving_image nor --compare_sim given — "
+                  "generating without scoring or writing (reference "
+                  "behaviour)")
 
-    tester = Tester(config, models, frozen, dataset)
+    tester = Tester(config, models, frozen, dataset, mesh=mesh)
     results = tester.sweep(ckpt, epochs, args.repeat_times, gen_root,
                            sampling_nums=args.sampling_nums,
                            compute_r_precision=args.compare_sim,
                            saving_images=args.saving_image)
-    for (e, r), res in results.items():
-        print(f"Epoch_{e}_{r}: {res}")
+    if main_rank:
+        for (e, r), res in results.items():
+            print(f"Epoch_{e}_{r}: {res}")
 
 
 if __name__ == "__main__":

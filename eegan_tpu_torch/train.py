@@ -28,7 +28,6 @@ import datetime
 import os
 import pprint
 import shutil
-import socket
 import sys
 
 import torch
@@ -103,12 +102,6 @@ def load_config(args):
     return config
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def main(argv=None):
     args = parse_args(argv)
 
@@ -146,33 +139,14 @@ def main(argv=None):
     if ranks == 1:
         train(args, config, device)
         return
-    # One process per device, joined through a local coordinator.
-    torch.multiprocessing.start_processes(
-        _rank_main, args=(sys.argv[1:] if argv is None else argv, ranks,
-                          fsdp, _free_port()), nprocs=ranks,
-        join=True, start_method="spawn")
+    distributed.spawn(_rank_main, sys.argv[1:] if argv is None else argv,
+                      ranks, device, fsdp)
 
 
-def _rank_main(rank: int, argv, ranks: int, fsdp: int, port: int) -> None:
-    """Rank ``rank`` of a one-host ``--mesh`` run of ``ranks`` ranks with
-    an fsdp axis of ``fsdp``."""
-    from eegan_tpu_torch.parallel import distributed
-    from eegan_tpu_torch.parallel.mesh import Mesh
-
+def _rank_main(argv, device, mesh) -> None:
+    """One rank of a one-host ``--mesh`` run (``distributed.spawn``)."""
     args = parse_args(argv)
-    base = torch.device(args.device)
-    if base.type == "cuda":
-        device = torch.device("cuda", rank)
-        torch.cuda.set_device(device)
-    else:
-        device = base
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // ranks))
-    distributed.initialize(f"127.0.0.1:{port}", ranks, rank, device=device)
-    try:
-        train(args, load_config(args), device,
-              Mesh.current(device, fsdp=fsdp))
-    finally:
-        distributed.shutdown()
+    train(args, load_config(args), device, mesh)
 
 
 def train(args, config, device, mesh=None) -> None:

@@ -240,11 +240,13 @@ def train_and_probe(step_fn, state: TrainState, frozen: FrozenEncoders,
                     pool: Sequence[Dict], steps: int, noise: NoiseFn,
                     probe: Callable[[TrainState], tuple],
                     probe_every: int = PROBE_EVERY,
-                    report: Optional[Callable[..., None]] = None
+                    report: Optional[Callable[..., None]] = None,
+                    snapshot: Optional[Callable[..., None]] = None
                     ) -> ProbeRun:
     """``steps`` calls of ``step_fn(state, frozen, batch, noise(step, b))``
     on ``pool[step % len(pool)]``; every ``probe_every`` steps and at the
-    last, ``probe(state) -> (result, kind)`` and
+    last, ``snapshot(step, state, frozen, pool)`` (to save the state),
+    ``probe(state) -> (result, kind)`` and
     ``report(step, metrics, result, kind, sweep)``. The last probe is the
     final score."""
     sync = synchronizer(next(state.generator.parameters()).device)
@@ -259,6 +261,8 @@ def train_and_probe(step_fn, state: TrainState, frozen: FrozenEncoders,
         if done % probe_every == 0 or done == steps:
             sync()
             train_s += time.perf_counter() - t0
+            if snapshot is not None:
+                snapshot(done, state, frozen, pool)
             final, kind = probe(state)
             sweep.update(done, final[0], kind)
             if report is not None:

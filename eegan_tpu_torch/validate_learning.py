@@ -155,10 +155,12 @@ def run(config: Config, seed: int = 0, steps: int = 3000,
         damsm_steps: int = 300, device="cuda", models=None,
         noise: Optional[probes.NoiseFn] = None,
         probe_noise: Optional[torch.Tensor] = None,
-        log: Callable[[str], None] = print) -> dict:
+        log: Callable[[str], None] = print,
+        snapshot: Optional[Callable[..., None]] = None) -> dict:
     """The probe's loop on ``config``: DAMSM pretraining, ``steps`` GAN
     steps with the sweep. ``models`` (default: built from the seed),
-    ``noise(step, b)`` and ``probe_noise`` replace the seeded draws."""
+    ``noise(step, b)`` and ``probe_noise`` replace the seeded draws;
+    ``snapshot`` is ``probes.train_and_probe``'s."""
     dev = resolve_device(device)
     ds = ColorDataset(config)
     if models is None:
@@ -195,7 +197,8 @@ def run(config: Config, seed: int = 0, steps: int = 3000,
 
     out = probes.train_and_probe(
         make_train_step(config, models), state, frozen, pool, steps,
-        noise or probes.gan_noise(config, seed, dev), probe, report=report)
+        noise or probes.gan_noise(config, seed, dev), probe, report=report,
+        snapshot=snapshot)
     correct, mean_rgb, nearest = out.final
     for i in range(k):
         log(f"class {i}: mean rgb {np.round(mean_rgb[i], 2)} -> "

@@ -20,12 +20,20 @@ parent saved to IN (``torch.save``), and saves what it got to
   through ``make_multi_train_step``, with ``fsdp`` > 1 on a state sharded
   over that axis): the metrics, the state in the unsharded layout, and
   under FSDP what each sharded leaf holds at rest and that layout loaded
-  back into a fresh sharded state and read out again.
+  back into a fresh sharded state and read out again;
+* ``sweep``: ``Tester(mesh=...).generate`` on the saved corpus, config and
+  weights with the saved per-batch noise (:func:`record_sweep`), its PNGs
+  written to the saved folder;
+* ``finetune``: the Inception's ``BatchNorm2d`` bound to the mesh, forward
+  and backward, and one IS fine-tune step (``make_finetune_step(mesh=...)``)
+  from the saved weights on the rank's rows of the saved batch, in float32
+  and again in float64.
 """
 
 import os
 import sys
 
+import numpy as np
 import torch
 
 from eegan_tpu_torch.parallel import distributed
@@ -198,8 +206,94 @@ def _at_rest(state):
     return out
 
 
+def sweep_tester(inputs, mesh=None):
+    """The ``Tester`` of the saved config, corpus and weights (on the
+    CPU), over ``mesh`` if given."""
+    from eegan_tpu_torch.data.datasets import TextOnlyDataset
+    from eegan_tpu_torch.evaluation.tester import Tester
+    from eegan_tpu_torch.models.factory import build_models
+    from eegan_tpu_torch.training.state import create_train_state
+
+    cfg = inputs["config"]
+    ds = TextOnlyDataset(cfg, split="test")
+    models = build_models(cfg, ds.n_words, device="cpu")
+    for name, sd in inputs["weights"].items():
+        getattr(models, name).load_state_dict(sd)
+    _, frozen = create_train_state(cfg, models)
+    return Tester(cfg, models, frozen, ds, mesh=mesh)
+
+
+def record_sweep(tester, out_dir, noise, **kw):
+    """``tester.generate(out_dir, **kw)`` with ``noise[batch_idx]`` as each
+    batch's noise; what each batch generated (this rank's rows), the
+    captions it encoded (the draws), its codes and similarities, its hits,
+    and the result."""
+    rec = {"images": [], "sents": [], "sims": [], "hits": []}
+
+    def recorded(name, fn, keep):
+        def call(*args):
+            out = fn(*args)
+            rec[name].append(keep(args, out))
+            return out
+        return call
+
+    tester.sample_step = recorded(
+        "images", tester.sample_step,
+        lambda a, o: [t.detach().clone() for t in o])
+    tester._encode_sents = recorded(
+        "sents", tester._encode_sents,
+        lambda a, o: (np.array(a[0]), np.array(a[1]), o))
+    tester._similarities = recorded("sims", tester._similarities,
+                                    lambda a, o: o)
+    tester._r_precision_batch = recorded("hits", tester._r_precision_batch,
+                                         lambda a, o: o)
+    rec["result"] = tester.generate(
+        out_dir, noise_fn=lambda i, b: torch.from_numpy(noise[i]), **kw)
+    return rec
+
+
+def task_sweep(mesh, inputs):
+    return record_sweep(sweep_tester(inputs, mesh), inputs["out_dir"],
+                        inputs["noise"], **inputs["kw"])
+
+
+def task_finetune(mesh, inputs):
+    from eegan_tpu_torch.evaluation import inception_finetune
+    from eegan_tpu_torch.models.factory import to_float64_
+    from eegan_tpu_torch.models.inception import BatchNorm2d
+
+    bn = BatchNorm2d(inputs["x"].shape[1], eps=1e-3)
+    bn.load_state_dict(inputs["bn"])
+    bn.mesh = mesh
+    bn.train()
+    x = mesh.rows(inputs["x"]).clone().requires_grad_(True)
+    y = bn(x)
+    (y * mesh.rows(inputs["dy"])).sum().backward()
+    out = {"bn": {"y": y.detach(), "dx": x.grad, "dweight": bn.weight.grad,
+                  "dbias": bn.bias.grad, "state": bn.state_dict()}}
+    cfg = inputs["config"]
+    for key, float64 in (("finetune", False), ("finetune64", True)):
+        model = inception_finetune.build_is_model(cfg, "cpu")
+        model.load_state_dict(inputs["model"])
+        batch = mesh.shard_batch(inputs["batch"])
+        if float64:
+            to_float64_(model)
+            batch["img256"] = batch["img256"].astype(np.float64)
+        step, init_opt = inception_finetune.make_finetune_step(
+            cfg, model, inputs["lr"], mesh)
+        opt = init_opt(model)
+        metrics = step(opt, batch)
+        out[key] = {
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "moments": {(n, m): opt.state[p][m].clone()
+                        for n, p in model.named_parameters()
+                        for m in ("exp_avg", "exp_avg_sq")},
+            "state": model.state_dict()}
+    return out
+
+
 TASKS = {"init": task_init, "bn": task_bn, "damsm": task_damsm,
-         "step": task_step}
+         "step": task_step, "sweep": task_sweep, "finetune": task_finetune}
 
 
 def main():
