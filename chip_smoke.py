@@ -183,6 +183,16 @@ Evaluation over the mesh, run last:
    CLI with ``--set RUNTIME.MESH=data:2`` as a subprocess on cuda (run
    with phase 16's CLIs).
 
+The benchmark entry point, run last and alone on the card:
+
+22. the benchmark's count of one step at GF_DIM=4, B=4 the same on the
+   card and on the CPU; ``python -m eegan_tpu_torch.bench`` as a
+   subprocess with short windows (EEGAN_BENCH_WINDOWS=1, ITERS=1, SCAN=2, BEST=0; the matmul
+   calibration on): its last line has the root bench.py's keys and
+   ``gpu``, ``power_limit_w``, ``n_cards``, ``peak_memory_mib``, a finite
+   ``value`` > 0 and ``mfu`` in (0, 1.05), and kernels 3 and 4 launched
+   once in the step it counted; the line is printed.
+
 Each phase's seconds are printed as it ends, and all of them with the
 run's total on a JSON line before the last three. The last lines are one
 JSON ``kernels`` line, the card's name and power limit as nvidia-smi
@@ -1282,28 +1292,29 @@ def phase_train_times(ngf: int, train):
     w = words.detach().requires_grad_(True)
     plain = damsm.words_similarity_reference(r, words, lens)
     plain_w = damsm.words_similarity_reference(regions, w, lens)
-    # The products need only the valid words (a padded word's attention is
-    # 0 and its cosine is masked out): count S * D per valid word and pair.
-    pair_sld = Bi * int(lens.sum()) * S * D
+    # The kernels' own products, over the valid words only (a padded word's
+    # attention is 0 and its cosine is masked out; ops/damsm.py).
+    ops = {kind: damsm.words_similarity_ops(kind, Bi, Bt, S, L, D, lens)
+           for kind in ("forward", "dr", "dw")}
     damsm_rows = {
         "words_similarity_forward": dict(
             ms=time_cuda(lambda: damsm.words_similarity_forward(
                 regions, words, lens), flush),
             plain_ms=time_cuda(lambda: damsm.words_similarity_reference(
                 regions, words, lens), flush),
-            flop=4 * pair_sld),
+            flop=ops["forward"]),
         "words_similarity_backward_dr": dict(
             ms=time_cuda(lambda: damsm.words_similarity_backward_dr(
                 regions, words, lens, dsim), flush),
             plain_ms=time_cuda(lambda: torch.autograd.grad(
                 plain, r, dsim, retain_graph=True), flush),
-            flop=10 * pair_sld),
+            flop=ops["dr"]),
         "words_similarity_backward_dw": dict(
             ms=time_cuda(lambda: damsm.words_similarity_backward_dw(
                 regions, words, lens, dsim), flush),
             plain_ms=time_cuda(lambda: torch.autograd.grad(
                 plain_w, w, dsim, retain_graph=True), flush),
-            flop=8 * pair_sld),
+            flop=ops["dw"]),
     }
     for row in damsm_rows.values():
         row["bound_ms"] = row["flop"] / FP32_FLOP_PER_S * 1e3
@@ -3604,6 +3615,94 @@ def phase_eval_mesh(tmp: str, cli):
     return result
 
 
+# ---------------------------------------------------------------------------
+# The benchmark entry point
+# ---------------------------------------------------------------------------
+
+# Short windows: one call of two steps after the warm-up and the counted
+# step; no best recipe (the matmul calibration stays on).
+BENCH_ENV = {"EEGAN_BENCH_WINDOWS": "1", "EEGAN_BENCH_ITERS": "1",
+             "EEGAN_BENCH_SCAN": "2", "EEGAN_BENCH_BEST": "0"}
+BENCH_TIMEOUT_S = 600
+
+
+def bench_step_count(device, width: int = 4, batch: int = 4):
+    """``bench.count_step`` of one step of the benchmark's recipe at a
+    small width on ``device``: (total, by op)."""
+    import torch
+
+    from eegan_tpu_torch import bench
+    from eegan_tpu_torch.training.steps import make_train_step
+
+    config, models, state, frozen, stacked, noise = bench.build_recipe(
+        bench.knobs({"EEGAN_BENCH_GF": str(width)}), batch, 1,
+        torch.device(device))
+    ops, _ = bench.count_step(make_train_step(config, models), state, frozen,
+                              {k: v[0] for k, v in stacked.items()},
+                              noise[0], config, batch)
+    return ops["total"], ops["by_op"]
+
+
+def phase_bench():
+    """(22) the benchmark's operation count of one step (GF_DIM=4, B=4)
+    the same on the card (cuDNN's LSTM and kernels 3-4 counted from their
+    shapes) as on the CPU (their plain versions dispatched); then ``python
+    -m eegan_tpu_torch.bench`` as a subprocess with short windows
+    (:data:`BENCH_ENV`), alone on the card: its last line has the root
+    bench.py's keys and the port's four, a finite ``value`` > 0 and
+    ``mfu`` in (0, 1.05), and the DAMSM kernels 3 and 4 launched once per
+    step over its timed windows (the benchmark itself refuses a count of
+    operations from a call whose launches per step differ)."""
+    from eegan_tpu_torch import bench
+
+    saved = read_counts()
+    card_ops, card_by_op = bench_step_count("cuda")
+    cpu_ops, cpu_by_op = bench_step_count("cpu")
+    set_counts(saved)
+    if card_ops != cpu_ops:
+        fail(f"benchmark step count: card {card_ops} {card_by_op}, CPU "
+             f"{cpu_ops} {cpu_by_op}")
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "eegan_tpu_torch.bench"], cwd=ROOT,
+            env={**os.environ, **BENCH_ENV}, capture_output=True, text=True,
+            timeout=BENCH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        fail(f"benchmark: no line within {BENCH_TIMEOUT_S} s")
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"benchmark exited {proc.returncode}: {proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    line = json.loads(lines[-1]) if lines else {}
+    want = set(bench.BENCH_PY_KEYS) | set(bench.ADDED_KEYS)
+    if set(line) != want:
+        fail(f"benchmark line keys: missing {sorted(want - set(line))}, "
+             f"extra {sorted(set(line) - want)}")
+    value, mfu = line["value"], line["mfu"]
+    if not (isinstance(value, (int, float)) and math.isfinite(value)
+            and value > 0):
+        fail(f"benchmark value {value}")
+    if mfu is None or not 0 < mfu < 1.05:
+        fail(f"benchmark mfu {mfu}")
+    counted = [ln[len(bench.LAUNCHES):] for ln in proc.stderr.splitlines()
+               if ln.startswith(bench.LAUNCHES)]
+    launches = json.loads(counted[0]) if counted else {}
+    want_launches = launches_of(words_similarity_forward=1,
+                                words_similarity_backward_dr=1)
+    if launches != want_launches:
+        fail(f"benchmark launches per step {launches}, expected "
+             f"{want_launches}")
+    log(f"phase 22 ok: one step's count at GF_DIM=4, B=4 {card_ops} on "
+        f"the card and on the CPU; python -m eegan_tpu_torch.bench with "
+        f"{BENCH_ENV}, alone on the card: {value} images/s per card, mfu "
+        f"{mfu}, {line['step_tflops']} TFLOP per step, launches per step "
+        f"in the timed windows {launches}; {seconds:.1f} s")
+    return dict(line=line, launches_per_step=launches, env=BENCH_ENV,
+                seconds=seconds, small_step_ops=card_ops,
+                small_step_by_op=card_by_op, stderr=proc.stderr[-4000:])
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", default=os.path.join(ROOT, "build",
@@ -3695,6 +3794,11 @@ def main() -> None:
                            os.path.join(tmp, "probes"))
         eval_mesh = watch("phase 21", phase_eval_mesh, tmp,
                           evaluation["clis"]["test_mesh"])
+    # The benchmark runs alone: this process gives back its cached device
+    # memory first.
+    gc.collect()
+    torch.cuda.empty_cache()
+    bench_run = watch("phase 22", phase_bench)
 
     card = {"gpu": name, "nvidia_smi": smi}
     step_line = {"sample_step": {
@@ -3721,6 +3825,7 @@ def main() -> None:
                **trainer_line, "clis": clis, "damsm_step_parity": damsm_parity,
                "evaluation": evaluation, "remat": remat, "mesh": mesh,
                "fsdp": fsdp, "probes": probe_runs, "eval_mesh": eval_mesh,
+               "bench": bench_run,
                "breakdown": breakdown, "train_breakdown": train_breakdown,
                "bf16_train_metrics": bf16_train["metrics"],
                "build_s": build_s, "phase_seconds": watch.seconds,
@@ -3762,6 +3867,8 @@ def main() -> None:
         "moments": {k: {m: v[m] for m in ("max_b", "max_c", "per_optimizer")}
                     for k, v in probe_runs["moments"].items()}}, **card}))
     log(json.dumps({"eval_mesh": eval_mesh, **card}))
+    log(json.dumps({"bench": bench_run["line"], "env": bench_run["env"],
+                    "seconds": bench_run["seconds"]}))
     for key, value in (("breakdown", breakdown),
                        ("train_breakdown", train_breakdown)):
         log(json.dumps({key: {k: v for k, v in value.items()
@@ -3826,6 +3933,8 @@ def main() -> None:
         row["launches_trainer_save_images"] = \
             trainer["launches_save_images"][row["name"]]
         row["launches_trainer_epoch"] = trainer["launches_epoch"][row["name"]]
+        row["launches_bench_step"] = \
+            bench_run["launches_per_step"][row["name"]]
         row["launches_eval_batch"] = \
             evaluation["times"]["launches_per_batch"][row["name"]]
         row["launches_remat_step"] = remat["launches"][row["name"]]

@@ -3,8 +3,16 @@
 
     python3 chip_variants.py        # from the repository root, one CUDA card
     python3 chip_variants.py --trajectory
+    python3 chip_variants.py --step_ops
 
-``--trajectory`` runs ``chip_smoke.py``'s phase 10 (the float32 train
+``--step_ops`` times the benchmark's bf16 train step
+(``eegan_tpu_torch/bench.py``'s recipe, B=32) with the MAGP's repairs
+undone and done, in turns (undone, done, done, undone; host clock,
+synchronised, median of 10 steps), with the device's busy time and the
+step's operations in each, then the generator's 3x3 convs of 32-64 output
+channels at that recipe: each shape's forward and backward device time,
+operations and share of the bf16 peak (the question behind
+RUNTIME.S2D_CONVS). ``--trajectory`` runs ``chip_smoke.py``'s phase 10 (the float32 train
 step against the CPU's, and kernels 1-2 on against off by the Adam
 moments of every tensor, beside a second kernels-on run), then a
 3000-step colour-probe run with kernels 1-4 on whose state it saves every
@@ -42,6 +50,7 @@ results, and the card's name and power limit.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import os
@@ -316,6 +325,139 @@ def time_d_convs(cs, torch):
     return out
 
 
+def bench_step(torch, device, batch: int, width: int = 32):
+    """The benchmark's recipe (``eegan_tpu_torch/bench.py``, no knobs set
+    but the batch and widths) as one train step: (step, state, frozen,
+    batch, noise, config)."""
+    from eegan_tpu_torch import bench
+    from eegan_tpu_torch.training.steps import make_train_step
+
+    config, models, state, frozen, stacked, noise = bench.build_recipe(
+        bench.knobs({"EEGAN_BENCH_GF": str(width)}), batch, 1,
+        torch.device(device))
+    one = {name: v[0] for name, v in stacked.items()}
+    return (make_train_step(config, models), state, frozen, one, noise[0],
+            config)
+
+
+def magp_repair_ab(cs, torch, device="cuda", batch=32, width=32,
+                   reps=10):
+    """The benchmark's bf16 step with the MAGP's repairs undone and done,
+    in turns (undone, done, done, undone; host clock, synchronised, median
+    of ``reps`` steps each), the device's busy time per step in each
+    (``chip_smoke.profile_steps``, 2 steps), and the step's operations in
+    each (``bench.count_step``)."""
+    from compare_op_counts import magp_repairs_undone
+    from eegan_tpu_torch import bench
+
+    step, state, frozen, one, noise, config = bench_step(torch, device,
+                                                         batch, width)
+    run = lambda: step(state, frozen, one, noise)
+    out = {"undone": {"ms": []}, "done": {"ms": []}}
+    for key in ("undone", "done", "done", "undone"):
+        with (magp_repairs_undone() if key == "undone"
+              else contextlib.nullcontext()):
+            out[key]["ms"].append(cs.time_host(run, reps=reps))
+    for key in ("undone", "done"):
+        with (magp_repairs_undone() if key == "undone"
+              else contextlib.nullcontext()):
+            out[key]["device_busy_ms_per_step"] = cs.profile_steps(
+                run, 2, out[key]["ms"][0])["device_busy_ms_per_step"]
+            ops, state = bench.count_step(step, state, frozen, one, noise,
+                                          config, batch)
+            out[key]["step_tflop"] = ops["total"] / 1e12
+            out[key]["tflop_by_op"] = {name: v / 1e12 for name, v
+                                       in ops["by_op"].items()}
+    out.update(batch=batch, gf_dim=width, dtype="bfloat16",
+               recipe="eegan_tpu_torch/bench.py defaults")
+    return out
+
+
+def generator_convs(torch, config, models, batch: int, device):
+    """The generator's convolutions in one train-mode forward at
+    ``batch``: (input shape, weight shape, stride, padding) -> calls."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from eegan_tpu_torch.models.attr_enhance import AttrEnhance
+
+    calls = {}
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func._overloadpacket is torch.ops.aten.convolution:
+                x, w = args[0], args[1]
+                key = (tuple(x.shape), tuple(w.shape), tuple(args[3]),
+                       tuple(args[4]), bool(args[6]))
+                calls[key] = calls.get(key, 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    emb = config.TEXT.EMBEDDING_DIM
+    gen = torch.Generator(device=device).manual_seed(3)
+    sent = torch.randn((batch, emb), generator=gen, device=device)
+    attrs = torch.randn((batch, config.TEXT.MAX_ATTR_NUM, emb),
+                        generator=gen, device=device)
+    z = torch.randn((batch, config.GAN.Z_DIM), generator=gen, device=device)
+    models.generator.train()
+    with torch.no_grad(), Record():
+        _, attn = models.attr_enhance(sent, attrs)
+        models.generator(z, sent, AttrEnhance.attr_merge(attn))
+    return calls
+
+
+NARROW_COUT = (32, 64)  # the output channels RUNTIME.S2D_CONVS packs on a TPU
+
+
+def narrow_convs(cs, torch, device="cuda", batch=32, width=32, step_ms=None,
+                 timer=None):
+    """The generator's 3x3 convs of 32-64 output channels in the bf16 step
+    at ``batch``: per shape, its calls per forward, the forward's and the
+    backward's (input and weight gradients) device time
+    (``chip_smoke.time_cuda``, L2 flushed, median of 25), their operations
+    and their share of the H100 SXM's dense bf16 peak (989 TFLOP/s)."""
+    from eegan_tpu_torch import bench
+    from eegan_tpu_torch.models.factory import build_models
+
+    config = bench.bench_config(bench.knobs({"EEGAN_BENCH_GF": str(width)}),
+                                batch)
+    torch.manual_seed(0)
+    models = build_models(config, bench.N_WORDS, device=device)
+    calls = generator_convs(torch, config, models, batch, device)
+    if timer is None:
+        flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=device)
+        timer = lambda fn: cs.time_cuda(fn, flush)
+    gen = torch.Generator(device=device).manual_seed(4)
+    rows, total_ms, total_ops = [], 0.0, 0
+    for (xs, ws, stride, pad, transposed), n in sorted(calls.items()):
+        if transposed or ws[2:] != (3, 3) or not (
+                NARROW_COUT[0] <= ws[0] <= NARROW_COUT[1]):
+            continue
+        x = torch.randn(xs, generator=gen, device=device).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        w = torch.randn(ws, generator=gen, device=device).to(torch.bfloat16)
+        y = torch.nn.functional.conv2d(x, w, None, stride, pad)
+        dy = torch.randn_like(y)
+        fwd_ms = timer(lambda: torch.nn.functional.conv2d(x, w, None, stride,
+                                                          pad))
+        bwd_ms = timer(lambda: torch.ops.aten.convolution_backward(
+            dy, x, w, None, list(stride), list(pad), [1, 1], False, [0, 0],
+            1, [True, True, False]))
+        ops = 2 * y.numel() * ws[1] * ws[2] * ws[3]
+        rows.append(dict(x=list(xs), w=list(ws), calls_per_step=n,
+                         fwd_ms=fwd_ms, bwd_ms=bwd_ms, fwd_gflop=ops / 1e9,
+                         fwd_share_of_peak=ops / (fwd_ms * 1e-3)
+                         / bench.H100_SXM_BF16_PEAK,
+                         bwd_share_of_peak=2 * ops / (bwd_ms * 1e-3)
+                         / bench.H100_SXM_BF16_PEAK))
+        total_ms += n * (fwd_ms + bwd_ms)
+        total_ops += n * 3 * ops
+    return dict(batch=batch, gf_dim=width, dtype="bfloat16", convs=rows,
+                ms_per_step=total_ms, tflop_per_step=total_ops / 1e12,
+                share_of_peak=(total_ops / (total_ms * 1e-3)
+                               / bench.H100_SXM_BF16_PEAK if total_ms
+                               else None),
+                share_of_step=(total_ms / step_ms if step_ms else None))
+
+
 TRAJECTORY_ENV = {"EEGAN_PROBE_PAFFINE": "1", "EEGAN_PROBE_UPFUSE": "0"}
 TRAJECTORY_STEPS = 3000
 
@@ -393,6 +535,10 @@ def main() -> None:
                         help="phase 10 of chip_smoke.py, then kernels 1-2 "
                              "held along a colour-probe run instead of the "
                              "kernel variants")
+    parser.add_argument("--step_ops", action="store_true",
+                        help="the benchmark's bf16 step with the MAGP's "
+                             "repairs undone and done, and the generator's "
+                             "narrow 3x3 convs, instead of the variants")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_variants: FAIL: this script needs a GPU", file=sys.stderr)
@@ -401,6 +547,17 @@ def main() -> None:
     import chip_smoke as cs
     from eegan_tpu_torch.ops import _build, affine, damsm
 
+    if args.step_ops:
+        _build.build(_build.sources())
+        repair = magp_repair_ab(cs, torch)
+        result = dict(magp_repair=repair,
+                      narrow_convs=narrow_convs(
+                          cs, torch,
+                          step_ms=repair["done"]["device_busy_ms_per_step"]),
+                      gpu=torch.cuda.get_device_name(0))
+        print(json.dumps(result))
+        print(cs.nvidia_smi())
+        return
     if args.trajectory:
         _build.build(_build.sources())
         result = dict(phase_10=cs.phase_train_parity()["moments"],

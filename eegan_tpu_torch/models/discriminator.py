@@ -29,6 +29,7 @@ import torch.nn as nn
 
 from eegan_tpu_torch.models.layers import (
     Conv2d,
+    LeakyReLU,
     Linear,
     avg_pool_2x,
     checkpointed,
@@ -48,9 +49,9 @@ class ResDown(nn.Module):
         self.downsample = downsample
         self.conv_r = nn.Sequential(
             conv4x4_down(fin, fout, compute_dtype=compute_dtype),
-            nn.LeakyReLU(0.2),
+            LeakyReLU(0.2),
             conv3x3(fout, fout, compute_dtype=compute_dtype),
-            nn.LeakyReLU(0.2))
+            LeakyReLU(0.2))
         self.conv_s = (conv1x1(fin, fout, bias=True,
                                compute_dtype=compute_dtype)
                        if fin != fout else None)
@@ -80,7 +81,7 @@ class DiscSent(nn.Module):
         super().__init__()
         self.joint_conv = nn.Sequential(
             conv3x3(ndf + nef, ndf * 2, compute_dtype=compute_dtype),
-            nn.LeakyReLU(0.2),
+            LeakyReLU(0.2),
             Conv2d(ndf * 2, 1, 4, compute_dtype=compute_dtype, padding=0))
 
     def forward(self, feat, cond):
@@ -99,7 +100,7 @@ class DiscCond(nn.Module):
         self.ndf = ndf
         dt = compute_dtype
         self.joinConv = nn.Sequential(
-            conv3x3(ndf + nef, ndf * 2, compute_dtype=dt), nn.LeakyReLU(0.2))
+            conv3x3(ndf + nef, ndf * 2, compute_dtype=dt), LeakyReLU(0.2))
         self.pair_node = Conv2d(ndf * 2, 1, 4, bias=True, compute_dtype=dt,
                                 stride=4, padding=0)
         self.class_node = Conv2d(ndf * 2, ndf * 2, 4, bias=True,
@@ -112,6 +113,11 @@ class DiscCond(nn.Module):
         pair = self.pair_node(x).reshape(b)
         cls = self.class_node(x).reshape(b, self.ndf * 2)
         return pair, self.class_linear(cls)
+
+    def pair_logit(self, feat, cond):
+        """The pair logit alone, without the class logits (the MAGP)."""
+        x = self.joinConv(_tile_cond(feat, cond))
+        return self.pair_node(x).reshape(feat.shape[0])
 
 
 def channel_ladder(ndf: int, scale: int) -> List[int]:

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -40,12 +41,18 @@ class TwiceDifferentiableConv(torch.autograd.Function):
     100% off against float64; float32 is right), where this form is within
     bf16's rounding. On the card it also keeps those weight gradients on
     cuDNN's weight-gradient kernels, not on the batch-and-channel-swapped
-    convolutions of the native double backward (PERF.md §6)."""
+    convolutions of the native double backward (PERF.md §6).
+
+    A conv recorded under :func:`input_grads_only` computes no weight or
+    bias gradient in its backward: ``ctx.needs_input_grad`` is fixed when
+    the graph is built and cannot tell that a backward asks only for the
+    input's gradient."""
 
     @staticmethod
     def forward(ctx, x, w, b, stride, padding):
         ctx.save_for_backward(x, w)
         ctx.geometry = (stride, padding, b is not None)
+        ctx.input_only = getattr(_recording, "input_only", False)
         return F.conv2d(x, w, b, stride, padding)
 
     @staticmethod
@@ -60,12 +67,34 @@ class TwiceDifferentiableConv(torch.autograd.Function):
                                             - 2 * padding[i] + w.shape[2 + i])
                           for i in range(2))
             dx = F.conv_transpose2d(dy, w, None, stride, padding, extra)
-        if need[1] or need[2]:
+        if (need[1] or need[2]) and not ctx.input_only:
             _, dw, db = torch.ops.aten.convolution_backward(
                 dy, x, w, [w.shape[0]] if has_bias else None, stride,
                 padding, (1, 1), False, (0, 0), 1,
                 [False, need[1], need[2] and has_bias])
         return dx, dw, db, None, None
+
+
+_recording = threading.local()
+
+
+@contextlib.contextmanager
+def input_grads_only():
+    """The :class:`TwiceDifferentiableConv` calls recorded within it
+    differentiate by their input only. For a pass whose weight gradients
+    nothing reads: the MAGP's D forward (its first backward asks for the
+    image and sentence gradients alone, as JAX's ``jax.grad`` by the inputs
+    does; the penalty's own backward into the weights goes through the
+    ``conv_transpose2d`` of that first backward) and the G phase's D
+    forwards (their backward fills the generator's gradients). Read when
+    the forward runs, since on a card autograd runs the backward on a
+    thread of its own."""
+    prev = getattr(_recording, "input_only", False)
+    _recording.input_only = True
+    try:
+        yield
+    finally:
+        _recording.input_only = prev
 
 
 class Conv2d(nn.Conv2d):
@@ -241,12 +270,64 @@ def checkpointed(fn, *args):
                                           _Recomputing(module)))
 
 
+class _SignMaskLeakyReLU(torch.autograd.Function):
+    """``F.leaky_relu`` whose backward scales the gradient by a saved sign
+    mask; differentiated again, it is linear in the gradient alone."""
+
+    @staticmethod
+    def forward(ctx, x, negative_slope: float):
+        ctx.negative_slope = negative_slope
+        ctx.save_for_backward(x > 0)
+        return F.leaky_relu(x, negative_slope)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (positive,) = ctx.saved_tensors
+        return torch.where(positive, dy, dy * ctx.negative_slope), None
+
+
+class LeakyReLU(nn.LeakyReLU):
+    """The discriminators' ``nn.LeakyReLU``, with a backward that reads the
+    sign of its input from a saved mask (the same values as PyTorch's
+    ``leaky_relu_backward``). Differentiated again (the MAGP), it sends
+    nothing back into its input: PyTorch's own double backward sends a
+    zero gradient there, and through it reaches every operation of the D's
+    forward, one more input gradient of zeros for each conv."""
+
+    def forward(self, x):
+        if not (torch.is_grad_enabled() and x.requires_grad):
+            return F.leaky_relu(x, self.negative_slope)
+        return _SignMaskLeakyReLU.apply(x, self.negative_slope)
+
+
 def leaky_relu(x, negative_slope: float = 0.2):
     return F.leaky_relu(x, negative_slope)
 
 
+class _AvgPool2x(torch.autograd.Function):
+    """``F.avg_pool2d(x, 2, 2)`` whose backward reads its input's shape
+    only; differentiated again, it is linear in the gradient alone."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return F.avg_pool2d(x, 2, 2)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (x,) = ctx.saved_tensors
+        return torch.ops.aten.avg_pool2d_backward(
+            dy, x.detach(), [2, 2], [2, 2], [0, 0], False, True, None)
+
+
 def avg_pool_2x(x):
-    """2x2 stride-2 average pool (VALID)."""
+    """2x2 stride-2 average pool (VALID). Recorded for a gradient, its
+    backward is PyTorch's (the same values), but it sends nothing back
+    into its input when differentiated again (the MAGP): PyTorch's own
+    double backward sends a zero gradient there, as ``leaky_relu`` does
+    (:class:`LeakyReLU`)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _AvgPool2x.apply(x)
     return F.avg_pool2d(x, 2, 2)
 
 

@@ -169,6 +169,35 @@ def dw_launch_plan(Bi: int, Bt: int, S: int, L: int, D: int,
         scratch_bytes=4 * Bi * Bt * (S * LT + L))
 
 
+_KERNEL_OPS = {"forward": 4, "dr": 10, "dw": 8}  # x S·D per valid word
+_PLAIN_OPS = {"forward": (4, 2), "dr": (6, 2), "dw": (4, 4)}  # (x S·D, x D)
+
+
+def words_similarity_ops(kind: str, Bi: int, Bt: int, S: int, L: int,
+                         D: int, cap_lens=None) -> int:
+    """Operations, at 2 per multiply-add, of kernel 3 (``kind``
+    "forward"), 4 ("dr") or 5 ("dw") at (Bi, Bt, S, L, D): Bi images of S
+    regions against Bt texts of L word slots, D features.
+
+    With ``cap_lens`` (Bt,): the kernels' own work, over the valid words
+    only. Per word and (image, text) pair the forward's two products (the
+    attention logits and the context) take 4·S·D; pass 1 of dR and of dW
+    computes them again, so dR takes 10·S·D and dW 8·S·D. Phase 12's
+    bounds divide this.
+
+    Without: the function as its plain version computes it, over all L
+    slots of each text (a padded word is computed, then masked) and
+    without the passes' recomputation: per slot and pair 4·S·D + 2·D
+    (forward, the cosines' dots too), 6·S·D + 2·D (dR) and 4·S·D + 4·D
+    (dW). This is the step's count, the same on the CPU, where the plain
+    version runs, and on a card (``eegan_tpu_torch/bench.py``)."""
+    if cap_lens is not None:
+        valid = int(torch.as_tensor(cap_lens).sum())
+        return _KERNEL_OPS[kind] * Bi * valid * S * D
+    sd, d = _PLAIN_OPS[kind]
+    return (sd * S * D + d * D) * Bi * Bt * L
+
+
 def words_similarity_reference(regions, words, cap_lens, gamma1: float = 5.0,
                                gamma2: float = 5.0) -> torch.Tensor:
     """Plain PyTorch version of the three kernels' function: the

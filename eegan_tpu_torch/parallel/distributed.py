@@ -109,7 +109,10 @@ def _rank_main(rank: int, entry: Callable, argv, ranks: int,
             backend = "gloo"
     else:
         device = torch.device(device_type)
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // ranks))
+        # The host's cores shared out, never more than the process would
+        # take on its own (OMP_NUM_THREADS).
+        torch.set_num_threads(max(1, min(torch.get_num_threads(),
+                                         (os.cpu_count() or 1) // ranks)))
     initialize(f"127.0.0.1:{port}", ranks, rank, device=device,
                backend=backend)
     try:

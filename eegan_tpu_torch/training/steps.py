@@ -60,7 +60,7 @@ from eegan_tpu_torch.losses import damsm as damsm_losses
 from eegan_tpu_torch.losses import gan as gan_losses
 from eegan_tpu_torch.models.attr_enhance import AttrEnhance
 from eegan_tpu_torch.models.factory import ModelBundle
-from eegan_tpu_torch.models.layers import TorchBatchNorm
+from eegan_tpu_torch.models.layers import TorchBatchNorm, input_grads_only
 from eegan_tpu_torch.ops.damsm import words_loss_fused
 from eegan_tpu_torch.parallel.fsdp import ShardedModule, has_fsdp_axis
 from eegan_tpu_torch.parallel.mesh import Mesh, check_axes
@@ -148,12 +148,16 @@ def _apply_update(opt, params, mesh: Optional[Mesh], clip: float,
 
 def _gradient_penalty(disc, img, sent, is_class_scale: bool) -> torch.Tensor:
     """MAGP of one batch (chunk): the input gradients of sum(D(img, sent))
-    with create_graph, so the penalty backpropagates into D."""
+    with create_graph, so the penalty backpropagates into D. The first
+    backward computes no weight gradient (:func:`input_grads_only`), and at
+    the class scale the class logits, which the penalty does not read, are
+    not computed."""
     img = img.detach().requires_grad_(True)
     sent = sent.detach().requires_grad_(True)
-    out = disc.head(disc.features(img), sent)
-    if is_class_scale:
-        out = out[0]
+    with input_grads_only():
+        feat = disc.features(img)
+        out = (disc.COND_DNET.pair_logit(feat, sent) if is_class_scale
+               else disc.head(feat, sent))
     gi, gs = torch.autograd.grad(out.float().sum(), (img, sent),
                                  create_graph=True)
     return gan_losses.magp_from_grads(gi, gs)
@@ -270,7 +274,9 @@ def build_train_step_fn(config: Config, models: ModelBundle,
         aux: Dict[str, torch.Tensor] = {}
         total = torch.zeros((), device=dev)
         for i, disc in enumerate(state.discriminators):
-            out = disc.head(disc.features(imgs[i]), d_sent)
+            # The backward fills the generator's gradients only.
+            with input_grads_only():
+                out = disc.head(disc.features(imgs[i]), d_sent)
             if use_class and i == n_scales - 1:
                 pair, cls = out
                 err_g = -pair.float().mean()
