@@ -19,7 +19,9 @@ resolution). The statistics stay outside (``TorchBatchNorm(return_stats)``).
 * :func:`affine_mask_relu_reference` is the plain PyTorch version, the math
   of ``affine_pallas.py:255-271`` (fp32 inside).
 * ``affine_mask_relu.launches`` and ``affine_mask_relu_backward.launches``
-  count kernel launches.
+  count kernel launches. Under a running profiler the entry is the span
+  ``eegan.ops.affine_mask_relu.fwd`` (either path) and the backward
+  ``eegan.ops.affine_mask_relu.bwd``.
 * :func:`forward_launch_plan` and :func:`backward_launch_plan` are the two
   kernels' launch plans (vector width, lanes per pixel, blocks per sample;
   the backward's scratch), plain Python that the CPU tests reach.
@@ -38,6 +40,7 @@ import torch
 
 from eegan_tpu_torch.models.layers import upsample_nearest_2x
 from eegan_tpu_torch.ops import _build
+from eegan_tpu_torch.training.logging import span
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535
@@ -329,10 +332,11 @@ class AffineMaskReLU(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, mean, var, gamma, beta, mask = ctx.saved_tensors
-        grads = affine_mask_relu_backward(
-            x, mean, var, gamma, beta, mask,
-            dy.contiguous(memory_format=torch.channels_last), ctx.up,
-            ctx.eps)
+        with span("ops.affine_mask_relu.bwd"):
+            grads = affine_mask_relu_backward(
+                x, mean, var, gamma, beta, mask,
+                dy.contiguous(memory_format=torch.channels_last), ctx.up,
+                ctx.eps)
         return (*grads, None, None, None)
 
 
@@ -343,13 +347,14 @@ def affine_mask_relu(x, mean, var, gamma, beta, mask, up: bool = False,
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernels.
     """
-    if x.device.type == "cpu":
-        return affine_mask_relu_reference(x, mean, var, gamma, beta, mask,
-                                          up, eps, out_dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
-    return AffineMaskReLU.apply(x, mean, var, gamma, beta, mask, up, eps,
-                                out_dtype)
+    with span("ops.affine_mask_relu.fwd"):
+        if x.device.type == "cpu":
+            return affine_mask_relu_reference(x, mean, var, gamma, beta, mask,
+                                              up, eps, out_dtype)
+        if x.device.type != "cuda":
+            raise ValueError(f"no kernel for device {x.device}")
+        return AffineMaskReLU.apply(x, mean, var, gamma, beta, mask, up, eps,
+                                    out_dtype)
 
 
 affine_mask_relu.launches = 0

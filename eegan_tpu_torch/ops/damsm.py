@@ -18,6 +18,10 @@ words loss contrasts (reference hot spot `miscc/DAMSM_losses.py:272-342`).
   contrastive CE over that grid, a drop-in for ``losses.damsm.words_loss``.
 * ``words_similarity_forward.launches``, ``words_similarity_backward_dr
   .launches`` and ``words_similarity_backward_dw.launches`` count launches.
+  Under a running profiler the entry is the span
+  ``eegan.ops.words_similarity.fwd`` (either path) and each gradient of
+  the backward ``eegan.ops.words_similarity.bwd_dr`` / ``.bwd_dw``, so the
+  trace puts the device's work here whatever kernel does it.
 * :func:`fwd_launch_plan`, :func:`dr_launch_plan` and
   :func:`dw_launch_plan` are the kernels' launch plans and shared-memory
   layouts, plain Python that the CPU tests reach; the C side only checks
@@ -39,6 +43,7 @@ from eegan_tpu_torch.losses.damsm import (
     word_region_log_sims,
 )
 from eegan_tpu_torch.ops import _build
+from eegan_tpu_torch.training.logging import span
 
 _SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block may use (Hopper)
 _SM_SMEM = 228 * 1024  # shared memory of one SM (Hopper)
@@ -352,12 +357,14 @@ class WordsSimilarity(torch.autograd.Function):
         regions, words, cap_lens = ctx.saved_tensors
         d_regions = d_words = None
         if ctx.needs_input_grad[0]:
-            d_regions = words_similarity_backward_dr(
-                regions, words, cap_lens, dsim, *ctx.gammas).reshape(
-                    regions.shape)
+            with span("ops.words_similarity.bwd_dr"):
+                d_regions = words_similarity_backward_dr(
+                    regions, words, cap_lens, dsim, *ctx.gammas).reshape(
+                        regions.shape)
         if ctx.needs_input_grad[1]:
-            d_words = words_similarity_backward_dw(
-                regions, words, cap_lens, dsim, *ctx.gammas)
+            with span("ops.words_similarity.bwd_dw"):
+                d_words = words_similarity_backward_dw(
+                    regions, words, cap_lens, dsim, *ctx.gammas)
         return d_regions, d_words, None, None, None
 
 
@@ -366,12 +373,14 @@ def words_similarity_fused(regions, words, cap_lens, gamma1: float = 5.0,
     """The (Bi, Bt) word-region log-similarity (unscaled by gamma3),
     differentiable in regions and words. CPU tensors take the plain
     version; CUDA tensors launch the kernels."""
-    if regions.device.type == "cpu":
-        return words_similarity_reference(regions, words, cap_lens, gamma1,
-                                          gamma2)
-    if regions.device.type != "cuda":
-        raise ValueError(f"no kernel for device {regions.device}")
-    return WordsSimilarity.apply(regions, words, cap_lens, gamma1, gamma2)
+    with span("ops.words_similarity.fwd"):
+        if regions.device.type == "cpu":
+            return words_similarity_reference(regions, words, cap_lens,
+                                              gamma1, gamma2)
+        if regions.device.type != "cuda":
+            raise ValueError(f"no kernel for device {regions.device}")
+        return WordsSimilarity.apply(regions, words, cap_lens, gamma1,
+                                     gamma2)
 
 
 def words_loss_fused(region_features, words_emb, cap_lens,

@@ -56,6 +56,7 @@ import torch.distributed as dist
 import torch.nn as nn
 
 from eegan_tpu_torch.parallel.mesh import Mesh
+from eegan_tpu_torch.training.logging import span
 
 # Leaves smaller than this stay replicated (the JAX package's floor): the
 # big conv kernels, the generator's fc and their Adam/EMA copies shard,
@@ -220,33 +221,35 @@ class ShardedModule:
         one reduce-scatter (sum) over the fsdp group, with D > 1 one
         all-reduce of the slices over the replica group, then 1/R.
         Returns the owned slices. Every rank of the mesh must call it."""
-        mesh, F = self.mesh, self.mesh.fsdp
-        grads = {j: p.grad for j, p in self.sharded()}
-        for dtype, (parts, chunk) in self._chunk_layout(grads).items():
-            device = grads[parts[0][0]].device
-            every = torch.empty((F, chunk), dtype=dtype, device=device)
-            for j, lo, hi, shape in parts:
-                every[:, lo:hi].view(F, *shape).copy_(
-                    self._split(grads.pop(j), j))
-                self.params[j].grad = None
-            mine = mesh.reduce_scatter_into(
-                torch.empty(chunk, dtype=dtype, device=device), every,
-                mesh.fsdp_group)
-            del every
-            if mesh.replica_group is not None:
-                dist.all_reduce(mine, group=mesh.replica_group)
-            mine.div_(mesh.size)
-            for j, lo, hi, shape in parts:
-                self.owned[j].grad = mine[lo:hi].view(shape)
-        return [self.owned[j] for j, _ in self.sharded()]
+        with span("fsdp.reduce_scatter"):
+            mesh, F = self.mesh, self.mesh.fsdp
+            grads = {j: p.grad for j, p in self.sharded()}
+            for dtype, (parts, chunk) in self._chunk_layout(grads).items():
+                device = grads[parts[0][0]].device
+                every = torch.empty((F, chunk), dtype=dtype, device=device)
+                for j, lo, hi, shape in parts:
+                    every[:, lo:hi].view(F, *shape).copy_(
+                        self._split(grads.pop(j), j))
+                    self.params[j].grad = None
+                mine = mesh.reduce_scatter_into(
+                    torch.empty(chunk, dtype=dtype, device=device), every,
+                    mesh.fsdp_group)
+                del every
+                if mesh.replica_group is not None:
+                    dist.all_reduce(mine, group=mesh.replica_group)
+                mine.div_(mesh.size)
+                for j, lo, hi, shape in parts:
+                    self.owned[j].grad = mine[lo:hi].view(shape)
+            return [self.owned[j] for j, _ in self.sharded()]
 
     def gather(self) -> None:
         """Put the full parameters, from every rank's current slices, into
         the module."""
-        full = self.gather_tensors({j: self.owned[j].detach()
-                                    for j, _ in self.sharded()})
-        for j, p in self.sharded():
-            p.data = full[j]
+        with span("fsdp.gather"):
+            full = self.gather_tensors({j: self.owned[j].detach()
+                                        for j, _ in self.sharded()})
+            for j, p in self.sharded():
+                p.data = full[j]
 
     # -- local ------------------------------------------------------------
     def materialize(self) -> None:

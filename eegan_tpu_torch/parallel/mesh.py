@@ -47,6 +47,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from eegan_tpu_torch.training.logging import span
+
 DATA_AXIS = "data"
 FSDP_AXIS = "fsdp"
 
@@ -290,12 +292,14 @@ class Mesh:
         by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
         for g in grads:
             by_dtype.setdefault(g.dtype, []).append(g)
-        for group in by_dtype.values():
-            flat = torch.cat([g.reshape(-1) for g in group])
-            dist.all_reduce(flat, group=self.group)
-            flat.div_(self.size)
-            for g, part in zip(group, flat.split([g.numel() for g in group])):
-                g.copy_(part.view_as(g))
+        with span("mesh.average_gradients"):
+            for group in by_dtype.values():
+                flat = torch.cat([g.reshape(-1) for g in group])
+                dist.all_reduce(flat, group=self.group)
+                flat.div_(self.size)
+                for g, part in zip(group,
+                                   flat.split([g.numel() for g in group])):
+                    g.copy_(part.view_as(g))
 
     @torch.no_grad()
     def average(self, values: Sequence[torch.Tensor]) -> List[torch.Tensor]:

@@ -16,7 +16,17 @@ coordinator; --batch_size stays the global batch, split over all N ranks.
 describes (``parallel/distributed.py``); the ranks span the mesh's data
 and fsdp axes. Any other axis beyond 1 raises ``NotImplementedError``, and
 a mesh of more ranks than visible GPUs raises. --profile_steps writes a ``torch.profiler`` trace to
-<output_dir>/profile/trace.json. --eval_overlap scores each generator
+<output_dir>/profile/trace.json (host operations and, on a GPU, the
+device's; input shapes are no longer recorded). Beside the operations it holds the port's
+spans (``training/logging.py:span``), each named ``eegan.<name>``:
+``train.step`` around each step and, under it, its phases ``train.text``,
+``train.generator``, ``train.d_hinge.<scale>``, ``train.d_magp.<scale>``,
+``train.g_loss``, ``train.update`` (seven a step) and ``train.ema``; the op
+entries ``ops.words_similarity.fwd`` / ``.bwd_dr`` / ``.bwd_dw`` and
+``ops.affine_mask_relu.fwd`` / ``.bwd`` inside the phase that calls them;
+``trainer.data_wait``, ``trainer.save_model`` and ``trainer.save_images``;
+and on a mesh ``mesh.average_gradients``, ``fsdp.gather`` and
+``fsdp.reduce_scatter``. --eval_overlap scores each generator
 snapshot (FID against --fid_stats, R-precision) on a background thread
 while training goes on (``evaluation/async_eval.py``).
 """

@@ -9,7 +9,10 @@
   work queued before it;
 * `trace()` wraps a block in a ``torch.profiler`` trace (host and, on a
   GPU, device activity), written as a Chrome trace, in place of
-  ``jax.profiler``.
+  ``jax.profiler``;
+* `span()` names a stretch of the port's own work (``eegan.<name>``) in
+  the trace of whatever ``torch.profiler`` session is running, and does
+  no profiler work when none is.
 """
 
 from __future__ import annotations
@@ -88,6 +91,22 @@ class StepTimer:
         return self._steps * self.batch_size / (time.perf_counter() - self._t0)
 
 
+SPAN_PREFIX = "eegan."
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """``record_function("eegan." + name)`` while a ``torch.profiler``
+    session runs, so the span sits in the profiler's own clock beside the
+    operations and the device activity it launches; otherwise a shared
+    no-op context. The profiler's state is checked once, at entry: with
+    no profiler running a span reads no clock, allocates nothing and
+    touches no device."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(SPAN_PREFIX + name)
+    return _OFF
+
+
 def start_trace() -> torch.profiler.profile:
     """A running ``torch.profiler`` session: host operations, and the
     device's when CUDA is available (started after a device synchronise,
@@ -96,7 +115,7 @@ def start_trace() -> torch.profiler.profile:
     if torch.cuda.is_available():
         torch.cuda.synchronize()
         activities.append(torch.profiler.ProfilerActivity.CUDA)
-    prof = torch.profiler.profile(activities=activities, record_shapes=True)
+    prof = torch.profiler.profile(activities=activities)
     prof.start()
     return prof
 

@@ -24,6 +24,16 @@ and RUNTIME.PALLAS_DAMSM the words loss through ``ops/damsm.py`` (kernels
 and REMAT_IMAGE_ENCODER checkpoint the modules as the factory built them.
 The sampling step runs the generator in eval mode.
 
+Under a running ``torch.profiler`` each step is the span
+``eegan.train.step`` (``training/logging.py:span``), and its phases are
+sibling spans under it, so each moment of a step has at most one:
+``train.text``, ``train.generator``, ``train.d_hinge.<scale>`` (zeroing
+the D's gradients through the hinge's backward), ``train.d_magp.<scale>``
+(the MAGP's chunks and their backward), ``train.g_loss`` (the G loss and
+its backward), ``train.update`` (each of the seven optimizer updates,
+with the D's FSDP gather after it) and ``train.ema``. A sampling call is
+``sample.step`` holding ``sample.text`` and ``sample.generator``.
+
 With a ``mesh`` (``parallel/mesh.py``, one process per device) each rank
 takes its rows of the global batch and of the global noise, and the step
 computes the JAX step's global-batch math: the generator's batch norms sum
@@ -64,6 +74,7 @@ from eegan_tpu_torch.models.layers import TorchBatchNorm, input_grads_only
 from eegan_tpu_torch.ops.damsm import words_loss_fused
 from eegan_tpu_torch.parallel.fsdp import ShardedModule, has_fsdp_axis
 from eegan_tpu_torch.parallel.mesh import Mesh, check_axes
+from eegan_tpu_torch.training.logging import span
 from eegan_tpu_torch.training.state import (
     FrozenEncoders,
     TrainState,
@@ -192,6 +203,10 @@ def build_train_step_fn(config: Config, models: ModelBundle,
     use_class, class_coe = tr.USE_CLASS, tr.CLASS_COE
     sm = tr.SMOOTH
     dev = models.device
+    # The D spans carry their scale in the name (a span's arguments do not
+    # reach the Chrome trace); built once, so a step allocates no name.
+    hinge_spans = [f"train.d_hinge.{i}" for i in range(n_scales)]
+    magp_spans = [f"train.d_magp.{i}" for i in range(n_scales)]
 
     def d_scale_update(i, disc, opt, real, fake, sent, unpair_sent,
                        class_labels, sharded: Sequence[ShardedModule]
@@ -203,11 +218,45 @@ def build_train_step_fn(config: Config, models: ModelBundle,
         params = list(disc.parameters())
 
         def update():
-            _apply_update(opt, params, mesh, tr.D_GRAD_CLIP, sharded)
-            for m in sharded:
-                m.gather()
+            with span("train.update"):
+                _apply_update(opt, params, mesh, tr.D_GRAD_CLIP, sharded)
+                for m in sharded:
+                    m.gather()
 
-        opt.zero_grad(set_to_none=True)
+        with span(hinge_spans[i]):
+            opt.zero_grad(set_to_none=True)
+            loss, metrics = hinge_loss(is_class_scale, disc, real, fake, sent,
+                                       unpair_sent, class_labels)
+            loss.backward()
+        update()
+        metrics = {f"errD_{i}/{k}": v.detach() for k, v in metrics.items()}
+
+        # --- MAGP, a second step at the freshly updated parameters ---
+        if "magp" in ablate:
+            return metrics
+        chunks = rt.MAGP_CHUNKS
+        b = real.shape[0]
+        if b % chunks:
+            raise ValueError(f"MAGP_CHUNKS={chunks} must divide batch {b}")
+        with span(magp_spans[i]):
+            opt.zero_grad(set_to_none=True)
+            # 2*mean(norm^6) over equal chunks is the full-batch mean; each
+            # chunk's double-backward graph is freed before the next is
+            # built.
+            gps = []
+            for img_c, sent_c in zip(real.chunk(chunks), sent.chunk(chunks)):
+                gp_c = _gradient_penalty(disc, img_c, sent_c, is_class_scale)
+                (gp_c / chunks).backward()
+                gps.append(gp_c.detach())
+        # The class head is off the penalty's path (a zero gradient).
+        update()
+        metrics[f"errD_{i}/d_loss_gp"] = torch.stack(gps).mean()
+        return metrics
+
+    def hinge_loss(is_class_scale, disc, real, fake, sent, unpair_sent,
+                   class_labels):
+        """The D's hinge loss (and at the class scale its class loss):
+        (loss, metrics by short name)."""
         if rt.DENSE_D:
             # One 2B tower pass and one 3B head pass (D has no cross-batch
             # ops, so this is the separate passes' math).
@@ -247,29 +296,7 @@ def build_train_step_fn(config: Config, models: ModelBundle,
                 * class_coe
             metrics.update(real_class=err_real_c, fake_class=err_fake_c,
                            unpair_class=err_unpair_c)
-        loss.backward()
-        update()
-        metrics = {f"errD_{i}/{k}": v.detach() for k, v in metrics.items()}
-
-        # --- MAGP, a second step at the freshly updated parameters ---
-        if "magp" in ablate:
-            return metrics
-        chunks = rt.MAGP_CHUNKS
-        b = real.shape[0]
-        if b % chunks:
-            raise ValueError(f"MAGP_CHUNKS={chunks} must divide batch {b}")
-        opt.zero_grad(set_to_none=True)
-        # 2*mean(norm^6) over equal chunks is the full-batch mean; each
-        # chunk's double-backward graph is freed before the next is built.
-        gps = []
-        for img_c, sent_c in zip(real.chunk(chunks), sent.chunk(chunks)):
-            gp_c = _gradient_penalty(disc, img_c, sent_c, is_class_scale)
-            (gp_c / chunks).backward()
-            gps.append(gp_c.detach())
-        # The class head is off the penalty's path (a zero gradient).
-        update()
-        metrics[f"errD_{i}/d_loss_gp"] = torch.stack(gps).mean()
-        return metrics
+        return loss, metrics
 
     def downstream_loss(state, frozen, imgs, merged, d_sent, sent, words,
                         batch, class_labels):
@@ -325,6 +352,10 @@ def build_train_step_fn(config: Config, models: ModelBundle,
 
     def train_step(state: TrainState, frozen: FrozenEncoders, batch: Batch,
                    noise) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        with span("train.step"):
+            return step(state, frozen, batch, noise)
+
+    def step(state, frozen, batch, noise):
         shards = state.shards
         if (shards is not None) != has_fsdp_axis(mesh):
             raise ValueError("a state sharded over an fsdp axis needs a mesh "
@@ -347,8 +378,9 @@ def build_train_step_fn(config: Config, models: ModelBundle,
             attrs_emb = torch.zeros((b, config.TEXT.MAX_ATTR_NUM, d),
                                     device=dev)
         else:
-            words, sent, unpair_sent, attrs_emb = encode_text_bundle(
-                frozen, config, batch, host)
+            with span("train.text"):
+                words, sent, unpair_sent, attrs_emb = encode_text_bundle(
+                    frozen, config, batch, host)
         if "dcond" in ablate:
             # The discriminators (and MAGP) see zero sentence embeddings.
             d_sent, d_unpair = torch.zeros_like(sent), torch.zeros_like(
@@ -361,14 +393,15 @@ def build_train_step_fn(config: Config, models: ModelBundle,
                         if use_class else None)
 
         # ONE generator forward for the iteration (reference train.py:195).
-        state.generator.train()
-        state.attr_enhance.train()
-        _, attn_attrs = state.attr_enhance(sent, attrs_emb)
-        merged = AttrEnhance.attr_merge(attn_attrs)
-        fake_imgs = state.generator(noise, sent, merged)
-        fake_sg = [im.detach() for im in fake_imgs]
-        if rt.BF16_IMAGES:
-            fake_sg = [im.to(torch.bfloat16) for im in fake_sg]
+        with span("train.generator"):
+            state.generator.train()
+            state.attr_enhance.train()
+            _, attn_attrs = state.attr_enhance(sent, attrs_emb)
+            merged = AttrEnhance.attr_merge(attn_attrs)
+            fake_imgs = state.generator(noise, sent, merged)
+            fake_sg = [im.detach() for im in fake_imgs]
+            if rt.BF16_IMAGES:
+                fake_sg = [im.to(torch.bfloat16) for im in fake_sg]
 
         metrics: Dict[str, torch.Tensor] = {}
         if "dsteps" not in ablate:
@@ -382,14 +415,16 @@ def build_train_step_fn(config: Config, models: ModelBundle,
 
         # --- G phase against the updated discriminators ---
         params = generator_params(state)
-        state.g_opt.zero_grad(set_to_none=True)
-        total, g_aux = downstream_loss(state, frozen, fake_imgs, merged,
-                                       d_sent, sent, words, batch,
-                                       class_labels)
-        total.backward(inputs=params)
-        _apply_update(state.g_opt, params, mesh, 0.0,
-                      () if shards is None else (shards.generator,
-                                                 shards.attr_enhance))
+        with span("train.g_loss"):
+            state.g_opt.zero_grad(set_to_none=True)
+            total, g_aux = downstream_loss(state, frozen, fake_imgs, merged,
+                                           d_sent, sent, words, batch,
+                                           class_labels)
+            total.backward(inputs=params)
+        with span("train.update"):
+            _apply_update(state.g_opt, params, mesh, 0.0,
+                          () if shards is None else (shards.generator,
+                                                     shards.attr_enhance))
         if shards is not None:
             shards.release()
         metrics.update({k: v.detach() for k, v in g_aux.items()})
@@ -398,7 +433,7 @@ def build_train_step_fn(config: Config, models: ModelBundle,
 
         decay = tr.G_EMA_DECAY
         if decay > 0:
-            with torch.no_grad():
+            with span("train.ema"), torch.no_grad():
                 for ema, module in ((state.g_ema, state.generator),
                                     (state.attr_ema, state.attr_enhance)):
                     for name, p in trained_tensors(module, shards):
@@ -453,6 +488,10 @@ def make_sample_step(config: Config, models: ModelBundle
     dev = models.device
 
     def sample(caps, cap_lens, attrs, attr_lens, noise) -> List[torch.Tensor]:
+        with span("sample.step"):
+            return sample_body(caps, cap_lens, attrs, attr_lens, noise)
+
+    def sample_body(caps, cap_lens, attrs, attr_lens, noise):
         caps, attrs = _tensor(caps).long(), _tensor(attrs).long()
         cap_lens, attr_lens = _tensor(cap_lens).long(), _tensor(attr_lens).long()
         b = caps.shape[0]
@@ -466,12 +505,14 @@ def make_sample_step(config: Config, models: ModelBundle
         for m in (models.text_encoder, models.attr_enhance, models.generator):
             m.eval()
         with torch.inference_mode():
-            _, sent_all = models.text_encoder(caps_all.to(dev), lens_all)
+            with span("sample.text"):
+                _, sent_all = models.text_encoder(caps_all.to(dev), lens_all)
             sent = sent_all[:b]
             attrs_emb = sent_all[b:].reshape(b, a_num, -1)
-            _, attn_attrs = models.attr_enhance(sent, attrs_emb)
-            merged = AttrEnhance.attr_merge(attn_attrs)
             noise = _tensor(noise).to(dev, torch.float32)
-            return models.generator(noise, sent, merged)
+            with span("sample.generator"):
+                _, attn_attrs = models.attr_enhance(sent, attrs_emb)
+                merged = AttrEnhance.attr_merge(attn_attrs)
+                return models.generator(noise, sent, merged)
 
     return sample

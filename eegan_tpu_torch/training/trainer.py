@@ -61,6 +61,7 @@ from eegan_tpu_torch.training.checkpoint import (
 from eegan_tpu_torch.training.logging import (
     MetricWriter,
     StepTimer,
+    span,
     start_trace,
     stop_trace,
 )
@@ -314,7 +315,8 @@ class Trainer:
         """``batches``, adding the host's wait for each to data_wait_s."""
         while True:
             t0 = time.perf_counter()
-            batch = next(batches, None)
+            with span("trainer.data_wait"):
+                batch = next(batches, None)
             if batch is None:
                 return
             self.data_wait_s += time.perf_counter() - t0
@@ -395,8 +397,10 @@ class Trainer:
                 if ips is not None:
                     print(f"epoch {epoch}: {ips} images/s")
             if self.is_main or self.state.shards is not None:
-                self.save_images(epoch)
-            self.save_model(epoch)
+                with span("trainer.save_images"):
+                    self.save_images(epoch)
+            with span("trainer.save_model"):
+                self.save_model(epoch)
         if prof is not None:
             stop_trace(prof, os.path.join(self.output_dir, "profile"))
 
