@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (``eegan_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
+    python3 chip_smoke.py --only d_graph   # the build and phase 23 alone
 
 Phases (any failure exits non-zero and prints no ``ok`` line):
 
@@ -189,6 +190,23 @@ Evaluation over the mesh, run last:
    CLI with ``--set RUNTIME.MESH=data:2`` as a subprocess on cuda (run
    with phase 16's CLIs); the collectives each rank ran.
 
+The D phase as CUDA graphs (``training/d_graph.py``), alone with the
+build under ``--only d_graph``:
+
+23. at bird's (B=32) and COCO's (B=24) shapes, bf16, kernels 3-4 on, from
+   one snapshot of a fresh state and the same 8 batches and noise: one
+   call eagerly (a no-op step hook on a D optimizer), one eagerly again,
+   one with the graphs (step 1 eager, the capture in step 2), under
+   deterministic algorithms; the per-step D losses, each D's parameters
+   and each D optimizer's Adam moments per tensor, graph against eager,
+   within 10 x the eager rerun + 1e-4 (phase 10's bar), no two steps'
+   stacked D metrics the same; a step hook and a half batch run
+   eagerly and the next step replays the same capture; a checkpoint
+   written with the graphs engaged resumes eagerly and with a new
+   capture within the same bar, and loads into a CPU state whose Adam
+   updates there; host and wall ms a step and the peak memory, eager
+   against the graphs.
+
 The benchmark entry point, run last and alone on the card:
 
 22. the benchmark's count of one step at GF_DIM=4, B=4 the same on the
@@ -196,8 +214,9 @@ The benchmark entry point, run last and alone on the card:
    subprocess with short windows (EEGAN_BENCH_WINDOWS=1, ITERS=1, SCAN=2, BEST=0; the matmul
    calibration on): its last line has the root bench.py's keys and
    ``gpu``, ``power_limit_w``, ``n_cards``, ``peak_memory_mib``, a finite
-   ``value`` > 0 and ``mfu`` in (0, 1.05), and kernels 3 and 4 launched
-   once in the step it counted; the line is printed.
+   ``value`` > 0 and ``mfu`` in (0, 1.05), kernels 3 and 4 launched
+   once in the step it counted, and every timed step's D phase replayed;
+   the line is printed.
 
 Each phase's seconds are printed as it ends, and all of them with the
 run's total on a JSON line before the last three. The last lines are one
@@ -3790,14 +3809,343 @@ def phase_bench():
     if launches != want_launches:
         fail(f"benchmark launches per step {launches}, expected "
              f"{want_launches}")
+    d_lines = [ln[len(bench.D_GRAPH):] for ln in proc.stderr.splitlines()
+               if ln.startswith(bench.D_GRAPH)]
+    d_phases = json.loads(d_lines[0]) if d_lines else {}
+    timed = (int(BENCH_ENV["EEGAN_BENCH_WINDOWS"])
+             * int(BENCH_ENV["EEGAN_BENCH_ITERS"])
+             * int(BENCH_ENV["EEGAN_BENCH_SCAN"]))
+    if d_phases != {"replays": timed, "eager": {}}:
+        fail(f"benchmark D phases in the timed windows {d_phases}, "
+             f"expected {timed} replayed")
     log(f"phase 22 ok: one step's count at GF_DIM=4, B=4 {card_ops} on "
         f"the card and on the CPU; python -m eegan_tpu_torch.bench with "
         f"{BENCH_ENV}, alone on the card: {value} images/s per card, mfu "
         f"{mfu}, {line['step_tflops']} TFLOP per step, launches per step "
-        f"in the timed windows {launches}; {seconds:.1f} s")
+        f"in the timed windows {launches}, D phases there {d_phases}; "
+        f"{seconds:.1f} s")
     return dict(line=line, launches_per_step=launches, env=BENCH_ENV,
+                d_phases=d_phases,
                 seconds=seconds, small_step_ops=card_ops,
                 small_step_by_op=card_by_op, stderr=proc.stderr[-4000:])
+
+
+D_GRAPH_STEPS = 8  # steps a call in phase 23; the graphs capture in step 2
+D_GRAPH_TIMED_CALLS = 2
+
+
+def d_graph_config(name: str):
+    """cfg/<name>.yml as the benchmark's train cells run it: bf16, kernels
+    3-4 on, kernels 1-2 off."""
+    from eegan_tpu_torch.config import apply_overrides, fresh_config
+
+    config = fresh_config(os.path.join(ROOT, "cfg", f"{name}.yml"))
+    apply_overrides(config, ["RUNTIME.COMPUTE_DTYPE=bfloat16",
+                             "RUNTIME.PALLAS_DAMSM=true",
+                             "RUNTIME.PALLAS_AFFINE=false"])
+    return config
+
+
+def d_graph_inputs(config, rows: int, seed: int):
+    """D_GRAPH_STEPS synthetic batches of ``rows`` stacked for one call
+    (the lengths on the host, as the trainer passes them) and their
+    noise."""
+    import numpy as np
+    import torch
+
+    drawn = [train_inputs(config, rows, seed + j)
+             for j in range(D_GRAPH_STEPS)]
+    batch = {k: torch.from_numpy(np.stack([b[k] for b, _ in drawn]))
+             for k in drawn[0][0]}
+    batch = {k: v if k.endswith("_lens") else v.cuda()
+             for k, v in batch.items()}
+    noise = torch.from_numpy(np.stack([z for _, z in drawn])).cuda()
+    return batch, noise
+
+
+def d_graph_counts():
+    from eegan_tpu_torch.training import d_graph
+
+    return d_graph.replays, dict(d_graph.eager)
+
+
+def d_graph_delta(before):
+    replays, eager = d_graph_counts()
+    return dict(replays=replays - before[0],
+                eager={k: v - before[1].get(k, 0) for k, v in eager.items()
+                       if v - before[1].get(k, 0)})
+
+
+@contextlib.contextmanager
+def eager_d_phase(state):
+    """A no-op step hook on the first D optimizer: the D phase runs
+    eagerly (``training/d_graph.py``'s ``step_hook``)."""
+    handle = state.d_opts[0].register_step_post_hook(lambda *a: None)
+    try:
+        yield
+    finally:
+        handle.remove()
+
+
+def d_readings(state, metrics):
+    """(each D metric by step, the D optimizers' moments, each D's
+    parameters) on the host."""
+    d_metrics = {k: v.float().cpu() for k, v in metrics.items()
+                 if k.startswith("errD_")}
+    moments = {k: v for k, v in named_moments(state).items()
+               if k[0] != "g"}
+    params = {f"d{i}": [p.detach().float().cpu() for p in d.parameters()]
+              for i, d in enumerate(state.discriminators)}
+    return d_metrics, moments, params
+
+
+def rel_l2(got, want) -> float:
+    import torch
+
+    g = torch.cat([t.double().flatten() for t in got])
+    w = torch.cat([t.double().flatten() for t in want])
+    return float((g - w).norm() / max(float(w.norm()), 1e-30))
+
+
+def d_gaps(got, want):
+    """The distances of two :func:`d_readings`: per-step D losses and
+    each D's parameters by relative L2, the moments per tensor and per
+    optimizer (:func:`moment_distances`), and whether all are bitwise
+    equal."""
+    import torch
+
+    gm, gmo, gp = got
+    wm, wmo, wp = want
+    per_tensor, per_opt = moment_distances(gmo, wmo)
+    bitwise = (all(torch.equal(gm[k], wm[k]) for k in wm)
+               and all(torch.equal(gmo[k], wmo[k]) for k in wmo)
+               and all(torch.equal(a, b) for k in wp
+                       for a, b in zip(gp[k], wp[k])))
+    return dict(losses=rel_l2([gm[k] for k in sorted(wm)],
+                              [wm[k] for k in sorted(wm)]),
+                params={k: rel_l2(gp[k], wp[k]) for k in sorted(wp)},
+                moments_per_optimizer=per_opt, moments_per_tensor=per_tensor,
+                bitwise=bitwise)
+
+
+def d_within(what: str, got, rerun):
+    """Fails unless each distance of ``got`` (graph against eager) is
+    within SWITCH_SPREAD times the same distance of ``rerun`` (eager
+    against eager) plus SWITCH_FLOOR, as the kernels' switch check."""
+    bad = []
+    pairs = [("losses", got["losses"], rerun["losses"])]
+    pairs += [(f"params {k}", v, rerun["params"][k])
+              for k, v in got["params"].items()]
+    pairs += [(f"moments {k}", v, rerun["moments_per_tensor"][k])
+              for k, v in got["moments_per_tensor"].items()]
+    for name, g, r in pairs:
+        if not g <= SWITCH_SPREAD * r + SWITCH_FLOOR:
+            bad.append((name, g, r))
+    if bad:
+        fail(f"{what}: graph against eager beyond {SWITCH_SPREAD} x the "
+             f"eager rerun + {SWITCH_FLOOR}: {bad[:WORST_ROWS]}")
+    return max(g for _, g, _ in pairs), max(r for _, _, r in pairs)
+
+
+def timed_calls(multi, state, frozen, batch, noise):
+    """Host ms and wall ms a step over D_GRAPH_TIMED_CALLS calls after a
+    warm one, and the peak device memory over them (GiB)."""
+    import torch
+
+    state, m = multi(state, frozen, batch, noise)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    host, wall = [], []
+    for _ in range(D_GRAPH_TIMED_CALLS):
+        t0 = time.perf_counter()
+        state, m = multi(state, frozen, batch, noise)
+        host.append(time.perf_counter() - t0)
+        float(m["errG/total"][-1])
+        wall.append(time.perf_counter() - t0)
+    per = 1e3 / D_GRAPH_STEPS
+    return dict(host_ms=statistics.median(host) * per,
+                wall_ms=statistics.median(wall) * per,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def d_graph_cell(name: str, tmp: str):
+    """Phase 23 at one configuration's shapes (module docstring)."""
+    import torch
+
+    from eegan_tpu_torch.training.checkpoint import CheckpointManager
+    from eegan_tpu_torch.training.state import create_train_state
+    from eegan_tpu_torch.training.steps import (
+        make_multi_train_step,
+        make_train_step,
+    )
+
+    config = d_graph_config(name)
+    rows = config.TRAIN.BATCH_SIZE
+    models, _ = train_models(config, "cuda")
+    state, frozen = create_train_state(config, models)
+    if not all(g["capturable"] for o in state.d_opts
+               for g in o.param_groups):
+        fail(f"{name}: the D optimizers on the card are not capturable")
+    multi = make_multi_train_step(config, models)
+    single = make_train_step(config, models)
+    batch, noise = d_graph_inputs(config, rows, SEED + 40)
+    snap = state_snapshot(state, "cuda")
+    reads, counts = {}, {}
+    with deterministic_card() as det:
+        for arm in ("eager", "eager_again", "graph"):
+            state_restore(state, snap)
+            state.d_graphs = None
+            before = d_graph_counts()
+            with (eager_d_phase(state) if arm != "graph"
+                  else contextlib.nullcontext()):
+                state, metrics = multi(state, frozen, batch, noise)
+            torch.cuda.synchronize()
+            counts[arm] = d_graph_delta(before)
+            reads[arm] = d_readings(state, metrics)
+        want = {"eager": dict(replays=0,
+                              eager={"step_hook": D_GRAPH_STEPS}),
+                "graph": dict(replays=D_GRAPH_STEPS - 1,
+                              eager={"first_step": 1})}
+        for arm, c in counts.items():
+            if c != want[arm.replace("_again", "")]:
+                fail(f"{name}: the {arm} arm counted {c}")
+        # Each step's own metrics, not the last replay's: every two steps
+        # differ in some D metric (a hinge term can read 0 in several).
+        rows_ = torch.stack(list(reads["graph"][0].values()), 1)
+        same = [(j, k) for j in range(D_GRAPH_STEPS) for k in range(j)
+                if torch.equal(rows_[j], rows_[k])]
+        if same:
+            fail(f"{name}: steps with the same D metrics {same}: "
+                 f"{ {k: v.tolist() for k, v in reads['graph'][0].items()} }")
+        rerun = d_gaps(reads["eager_again"], reads["eager"])
+        gaps = [d_gaps(reads["graph"], reads[a])
+                for a in ("eager", "eager_again")]
+        worst = [d_within(f"{name} graph against {a}", g, rerun)
+                 for a, g in zip(("eager", "eager_again"), gaps)]
+
+        # The graph arm's state goes on (it ran last): a step hook and a
+        # smaller batch
+        # run eagerly, and the next full step replays the same capture.
+        graphs = state.d_graphs
+        one = {k: v[0] for k, v in batch.items()}
+        fallbacks = {}
+        for case in ("step_hook", "shape", "replay"):
+            before = d_graph_counts()
+            if case == "step_hook":
+                with eager_d_phase(state):
+                    state, _ = single(state, frozen, one, noise[0])
+            elif case == "shape":
+                half = {k: v[:rows // 2] for k, v in one.items()}
+                state, _ = single(state, frozen, half, noise[0][:rows // 2])
+            else:
+                state, _ = single(state, frozen, one, noise[0])
+            fallbacks[case] = d_graph_delta(before)
+        torch.cuda.synchronize()
+        if (fallbacks != {"step_hook": dict(replays=0,
+                                            eager={"step_hook": 1}),
+                          "shape": dict(replays=0, eager={"shape": 1}),
+                          "replay": dict(replays=1, eager={})}
+                or state.d_graphs is not graphs):
+            fail(f"{name}: fallbacks {fallbacks}")
+
+        # A checkpoint written with the graphs engaged resumes eagerly
+        # (twice: the rerun spread) and with a new capture.
+        ckpt = CheckpointManager(os.path.join(tmp, name))
+        ckpt.save_state(1, state)
+        taken = D_GRAPH_STEPS + 3
+        resumed, resume_counts = {}, {}
+        for arm in ("eager", "graph", "eager_again"):
+            ckpt.restore_state(state, 1)
+            steps = {float(o.state[p]["step"]) for o in state.d_opts
+                     for p in o.state}
+            if steps != {2.0 * taken}:
+                fail(f"{name}: resumed D step counts {steps}")
+            before = d_graph_counts()
+            with (eager_d_phase(state) if arm != "graph"
+                  else contextlib.nullcontext()):
+                state, metrics = single(state, frozen, one, noise[1])
+            torch.cuda.synchronize()
+            resume_counts[arm] = d_graph_delta(before)
+            resumed[arm] = d_readings(
+                state, {k: v[None] for k, v in metrics.items()})
+        if resume_counts["graph"] != dict(replays=1, eager={}):
+            fail(f"{name}: the resumed graph arm counted "
+                 f"{resume_counts['graph']}")
+        resume_worst = d_within(
+            f"{name} resumed graph against eager",
+            d_gaps(resumed["graph"], resumed["eager"]),
+            d_gaps(resumed["eager_again"], resumed["eager"]))
+    state.d_graphs = None
+
+    # The checkpoint in a CPU process's state: its own capturable (off),
+    # the step counts on the host, and an Adam update that runs.
+    cpu_models, _ = train_models(config, "cpu")
+    cpu_state, _ = create_train_state(config, cpu_models)
+    ckpt.restore_state(cpu_state, 1)
+    for o in cpu_state.d_opts:
+        for g in o.param_groups:
+            for p in g["params"]:
+                p.grad = torch.zeros_like(p)
+        o.step()
+    cpu_steps = {(g["capturable"], float(o.state[p]["step"]),
+                  o.state[p]["step"].device.type)
+                 for o in cpu_state.d_opts for g in o.param_groups
+                 for p in g["params"]}
+    if cpu_steps != {(False, 2.0 * taken + 1, "cpu")}:
+        fail(f"{name}: the checkpoint on the CPU: {cpu_steps}")
+    del cpu_models, cpu_state
+
+    # Host and wall ms a step, eager against the graphs, at the default
+    # settings (the graphs capture again for them).
+    times = {}
+    for arm in ("eager", "graph"):
+        with (eager_d_phase(state) if arm == "eager"
+              else contextlib.nullcontext()):
+            times[arm] = timed_calls(multi, state, frozen, batch, noise)
+    if state.d_graphs is None:
+        fail(f"{name}: the timed graph arm did not capture")
+    out = dict(rows=rows, counts=counts, fallbacks=fallbacks,
+               rerun=rerun, graph_vs_eager=gaps,
+               worst_graph_vs_eager=[w[0] for w in worst],
+               worst_rerun=worst[0][1], resume_counts=resume_counts,
+               resume_worst=resume_worst, cpu_steps=sorted(cpu_steps),
+               times=times, nondeterministic_ops=det.ops)
+    for g in out["graph_vs_eager"] + [rerun]:
+        g.pop("moments_per_tensor")
+    log(f"phase 23 {name} (B={rows}): graph against eager {gaps[0]} "
+        f"(bitwise {gaps[0]['bitwise']}), eager rerun {rerun}; counts "
+        f"{counts}; fallbacks {fallbacks}; resumed worst {resume_worst}; "
+        f"CPU load {sorted(cpu_steps)}; ms a step {times}")
+    del state, frozen, models, multi, single, snap
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_d_graph():
+    """(23) the D phase's CUDA graphs (``training/d_graph.py``) against the
+    eager D phase, at bird's (B=32) and COCO's (B=24) shapes, bf16,
+    kernels 3-4 on: from one snapshot of a fresh state and the same
+    D_GRAPH_STEPS batches and noise, one call eagerly (a step hook), one
+    with the graphs (step 1 eager, the capture in step 2, replays after)
+    and one eagerly again, under deterministic algorithms; the per-step D
+    losses, each D's parameters and each D optimizer's moments per tensor
+    within SWITCH_SPREAD x the eager rerun + SWITCH_FLOOR; no two steps'
+    stacked D metrics the same; a step hook and a half batch run
+    eagerly and the next step replays the same capture; a checkpoint
+    written with the graphs engaged resumes eagerly and with a new
+    capture, within the same bar, and loads into a CPU state, whose Adam
+    updates there; then host and wall ms a step and the peak memory,
+    eager against the graphs, at the default settings."""
+    import torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = {name: d_graph_cell(name, tmp) for name in ("bird", "coco")}
+    out["card"] = nvidia_smi()
+    log(f"phase 23 ok: {out['card']}; ms a step " + json.dumps(
+        {k: v["times"] for k, v in out.items() if k != "card"}))
+    torch.cuda.synchronize()
+    return out
 
 
 def main() -> None:
@@ -3805,6 +4153,8 @@ def main() -> None:
     parser.add_argument("--out", default=os.path.join(ROOT, "build",
                                                       "chip_smoke.json"),
                         help="JSON file for the full results")
+    parser.add_argument("--only", choices=["d_graph"],
+                        help="run only the build and this phase (23)")
     args = parser.parse_args()
     import torch
 
@@ -3820,6 +4170,20 @@ def main() -> None:
     log("env " + json.dumps(env))
 
     watch = Stopwatch()
+    if args.only == "d_graph":
+        build_s = watch("phase 2 build", finish_build, start_build())
+        d_graphs = watch("phase 23 D graphs", phase_d_graph)
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump({"d_graph": d_graphs, "build_s": build_s}, f, indent=1)
+        log(json.dumps({"phase_seconds": watch.seconds,
+                        "total_s": watch.total()}))
+        log(smi)
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return
     # The build runs beside phase 15's DAMSM step parity, which launches no
     # kernel (it sets TF32 off; the later phases start from the defaults).
     build = start_build()
@@ -3891,6 +4255,7 @@ def main() -> None:
                            os.path.join(tmp, "probes"))
         eval_mesh = watch("phase 21", phase_eval_mesh, tmp,
                           evaluation["clis"]["test_mesh"])
+    d_graphs = watch("phase 23 D graphs", phase_d_graph)
     # The benchmark runs alone: this process gives back its cached device
     # memory first.
     gc.collect()
@@ -3922,7 +4287,7 @@ def main() -> None:
                **trainer_line, "clis": clis, "damsm_step_parity": damsm_parity,
                "evaluation": evaluation, "remat": remat, "mesh": mesh,
                "fsdp": fsdp, "probes": probe_runs, "eval_mesh": eval_mesh,
-               "bench": bench_run,
+               "bench": bench_run, "d_graph": d_graphs,
                "breakdown": breakdown, "train_breakdown": train_breakdown,
                "bf16_train_metrics": bf16_train["metrics"],
                "build_s": build_s, "phase_seconds": watch.seconds,

@@ -34,8 +34,10 @@ function, so that a configuration counts the same on the CPU and on a
 card; the call's count over K is the step's. The kernels' launches per
 step over the timed windows must equal those of the counted call (it
 raises otherwise), and standard error gives them on the line that starts
-with :data:`LAUNCHES`. ``step_tflops`` is one card's step (its rows of the
-batch).
+with :data:`LAUNCHES`; the line that starts with :data:`D_GRAPH` counts the
+timed steps whose D phase replayed its CUDA graphs
+(``training/d_graph.py``; the counted call runs it eagerly).
+``step_tflops`` is one card's step (its rows of the batch).
 ``mfu`` is that count times the steps per second over the H100 SXM's dense
 bf16 peak (989 TFLOP/s, NVIDIA's data sheet, at 700 W; null on another
 card or the CPU, and standard error says why); ``mfu_vs_calibrated`` the
@@ -97,6 +99,7 @@ BENCH_PY_KEYS = (
     "gf_dim", "use_class", "best_recipe")
 ADDED_KEYS = ("gpu", "power_limit_w", "n_cards", "peak_memory_mib")
 LAUNCHES = "kernel launches per step in the timed windows: "
+D_GRAPH = "D phases in the timed windows, replayed and eager by reason: "
 
 
 def knobs(env=None) -> Dict:
@@ -242,6 +245,14 @@ def launch_counts() -> Dict[str, int]:
         damsm.words_similarity_backward_dw)}
 
 
+def d_graph_counts() -> Dict:
+    """The train step's D phases so far: replayed as CUDA graphs, and run
+    eagerly by reason (``training/d_graph.py``)."""
+    from eegan_tpu_torch.training import d_graph
+
+    return {"replays": d_graph.replays, "eager": dict(d_graph.eager)}
+
+
 def _per_step(delta: Dict[str, int], steps: int) -> Dict[str, float]:
     return {name: n // steps if n % steps == 0 else n / steps
             for name, n in delta.items()}
@@ -355,6 +366,7 @@ def measure_recipe(k: Dict, batch_per_card: int, scan_k: int, device,
     imgs_per_call = batch_per_card * scan_k
     window_dts = []
     before = launch_counts()
+    d_before = d_graph_counts()
     for wi in range(k["windows"]):
         _sync(device)
         t0 = time.perf_counter()
@@ -375,6 +387,12 @@ def measure_recipe(k: Dict, batch_per_card: int, scan_k: int, device,
             f"kernel launches per step: {launches} in the timed windows, "
             f"{ops['launches']} in the counted call")
     _log(LAUNCHES + json.dumps(launches), main)
+    d_after = d_graph_counts()
+    _log(D_GRAPH + json.dumps({
+        "replays": d_after["replays"] - d_before["replays"],
+        "eager": {k: n - d_before["eager"].get(k, 0)
+                  for k, n in d_after["eager"].items()
+                  if n != d_before["eager"].get(k, 0)}}), main)
 
     total_dt = sum(window_dts)
     per_card = k["windows"] * k["iters"] * imgs_per_call / total_dt

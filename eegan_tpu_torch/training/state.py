@@ -19,7 +19,7 @@ layout either way, so a checkpoint does not depend on the mesh.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -62,6 +62,9 @@ class TrainState:
     attr_ema: Optional[Dict[str, torch.Tensor]] = None
     # The sharded modules under an fsdp axis; None without one.
     shards: Optional[FsdpShards] = None
+    # The D phase captured as CUDA graphs (``training/d_graph.py``), once
+    # a step has captured it; None before and off the card.
+    d_graphs: Optional[Any] = None
 
 
 def generator_params(state_or_models) -> List[nn.Parameter]:
@@ -72,7 +75,8 @@ def generator_params(state_or_models) -> List[nn.Parameter]:
 
 
 def make_optimizers(config: Config, models,
-                    shards: Optional[FsdpShards] = None
+                    shards: Optional[FsdpShards] = None,
+                    capturable: bool = False
                     ) -> Tuple[torch.optim.Optimizer,
                                Tuple[torch.optim.Optimizer, ...]]:
     """Adam(GENERATOR_LR) over G ∪ AttrEnhance and Adam(DISCRIMINATOR_LR)
@@ -80,11 +84,14 @@ def make_optimizers(config: Config, models,
     parameters, or with ``shards`` over the tensors each rank owns, in the
     same order. TRAIN.D_GRAD_CLIP is applied by the step
     (:func:`clip_by_global_norm_`) before each D update, as the JAX
-    package's ``optax.chain`` does."""
+    package's ``optax.chain`` does. ``capturable`` makes the D optimizers
+    ``capturable`` (the step count on the device, so that a CUDA graph
+    can hold their update: ``training/d_graph.py``); the same Adam."""
     t = config.TRAIN
 
-    def adam(params, lr):
-        return torch.optim.Adam(params, lr=lr, betas=(t.B1, t.B2), eps=1e-8)
+    def adam(params, lr, capturable=False):
+        return torch.optim.Adam(params, lr=lr, betas=(t.B1, t.B2), eps=1e-8,
+                                capturable=capturable)
 
     if shards is None:
         g_params = generator_params(models)
@@ -93,7 +100,8 @@ def make_optimizers(config: Config, models,
         g_params = shards.generator.owned + shards.attr_enhance.owned
         d_params = [d.owned for d in shards.discriminators]
     g_opt = adam(g_params, t.GENERATOR_LR)
-    d_opts = tuple(adam(p, t.DISCRIMINATOR_LR) for p in d_params)
+    d_opts = tuple(adam(p, t.DISCRIMINATOR_LR, capturable)
+                   for p in d_params)
     return g_opt, d_opts
 
 
@@ -155,7 +163,11 @@ def create_train_state(config: Config, models: ModelBundle,
             generator=shard(models.generator),
             attr_enhance=shard(models.attr_enhance),
             discriminators=tuple(shard(d) for d in models.discriminators))
-    g_opt, d_opts = make_optimizers(config, models, shards)
+    # The D phase can replay as CUDA graphs on a card without a mesh.
+    g_opt, d_opts = make_optimizers(
+        config, models, shards,
+        capturable=mesh is None and torch.device(models.device).type
+        == "cuda")
     use_ema = config.TRAIN.G_EMA_DECAY > 0
 
     def copy(module):
@@ -299,6 +311,23 @@ def _load_ema(ema: Dict[str, torch.Tensor], saved: Dict[str, torch.Tensor],
             ema[k].copy_(v)
 
 
+def _load_optimizer(opt: torch.optim.Optimizer, sd: Dict) -> None:
+    """``opt.load_state_dict(sd)``, keeping ``opt``'s own ``capturable``
+    (torch takes the saved groups' flag): a checkpoint of a capturable
+    Adam on a card loads into a CPU process, and the other way round. The
+    step counts go where that flag keeps them: on the parameter's device,
+    or on the host."""
+    flags = [g.get("capturable", False) for g in opt.param_groups]
+    opt.load_state_dict(sd)
+    for g, flag in zip(opt.param_groups, flags):
+        g["capturable"] = flag
+        for p in g["params"]:
+            st = opt.state.get(p)
+            if st and "step" in st:
+                st["step"] = st["step"].to(
+                    device=p.device if flag else "cpu", dtype=torch.float32)
+
+
 def load_full_state_dict(state: TrainState, saved: Dict) -> None:
     """Load a :func:`full_state_dict` (the unsharded layout) into
     ``state``, in place, whatever its mesh: under FSDP each rank keeps its
@@ -324,15 +353,15 @@ def load_full_state_dict(state: TrainState, saved: Dict) -> None:
     for d, sd in zip(state.discriminators, saved["discriminators"]):
         _load_module(d, sh, sd)
     if sh is None:
-        state.g_opt.load_state_dict(saved["g_opt"])
+        _load_optimizer(state.g_opt, saved["g_opt"])
         for opt, sd in zip(state.d_opts, saved["d_opts"]):
-            opt.load_state_dict(sd)
+            _load_optimizer(opt, sd)
     else:
-        state.g_opt.load_state_dict(shard_optimizer_state(
+        _load_optimizer(state.g_opt, shard_optimizer_state(
             saved["g_opt"], (sh.generator, sh.attr_enhance)))
         for opt, m, sd in zip(state.d_opts, sh.discriminators,
                               saved["d_opts"]):
-            opt.load_state_dict(shard_optimizer_state(sd, (m,)))
+            _load_optimizer(opt, shard_optimizer_state(sd, (m,)))
     if seed_ema:
         with torch.no_grad():
             for module, ema, _ in pairs:

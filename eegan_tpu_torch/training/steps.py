@@ -34,6 +34,14 @@ its backward), ``train.update`` (each of the seven optimizer updates,
 with the D's FSDP gather after it) and ``train.ema``. A sampling call is
 ``sample.step`` holding ``sample.text`` and ``sample.generator``.
 
+On a card without a mesh the D phase (every scale's hinge and MAGP steps
+with their Adam updates) runs as CUDA graphs (``training/d_graph.py``),
+captured once the D optimizers hold state and replayed every step, each
+replay under the span its eager unit runs under and a nested
+``train.d_graph``; ``d_graph.eager_reason`` keeps it eager where a replay
+could not do what the eager phase does (a mesh, an ablation, a
+checkpointed D, an optimizer step hook, another batch shape...).
+
 With a ``mesh`` (``parallel/mesh.py``, one process per device) each rank
 takes its rows of the global batch and of the global noise, and the step
 computes the JAX step's global-batch math: the generator's batch norms sum
@@ -74,6 +82,7 @@ from eegan_tpu_torch.models.layers import TorchBatchNorm, input_grads_only
 from eegan_tpu_torch.ops.damsm import words_loss_fused
 from eegan_tpu_torch.parallel.fsdp import ShardedModule, has_fsdp_axis
 from eegan_tpu_torch.parallel.mesh import Mesh, check_axes
+from eegan_tpu_torch.training import d_graph
 from eegan_tpu_torch.training.logging import span
 from eegan_tpu_torch.training.state import (
     FrozenEncoders,
@@ -208,13 +217,42 @@ def build_train_step_fn(config: Config, models: ModelBundle,
     hinge_spans = [f"train.d_hinge.{i}" for i in range(n_scales)]
     magp_spans = [f"train.d_magp.{i}" for i in range(n_scales)]
 
+    def hinge_unit(i, disc, opt, real, fake, sent, unpair_sent,
+                   class_labels) -> Dict[str, torch.Tensor]:
+        """Zero the D's gradients, its hinge loss and the loss's backward:
+        the metrics by name."""
+        opt.zero_grad(set_to_none=True)
+        loss, metrics = hinge_loss(use_class and i == n_scales - 1, disc,
+                                   real, fake, sent, unpair_sent,
+                                   class_labels)
+        loss.backward()
+        return {f"errD_{i}/{k}": v.detach() for k, v in metrics.items()}
+
+    def magp_unit(i, disc, opt, real, sent) -> torch.Tensor:
+        """Zero the D's gradients, the MAGP over RUNTIME.MAGP_CHUNKS equal
+        chunks and each chunk's backward: the penalty. 2*mean(norm^6)
+        over equal chunks is the full-batch mean; each chunk's
+        double-backward graph is freed before the next is built."""
+        chunks = rt.MAGP_CHUNKS
+        b = real.shape[0]
+        if b % chunks:
+            raise ValueError(f"MAGP_CHUNKS={chunks} must divide batch {b}")
+        opt.zero_grad(set_to_none=True)
+        gps = []
+        for img_c, sent_c in zip(real.chunk(chunks), sent.chunk(chunks)):
+            gp_c = _gradient_penalty(disc, img_c, sent_c,
+                                     use_class and i == n_scales - 1)
+            (gp_c / chunks).backward()
+            gps.append(gp_c.detach())
+        return torch.stack(gps).mean()
+
     def d_scale_update(i, disc, opt, real, fake, sent, unpair_sent,
                        class_labels, sharded: Sequence[ShardedModule]
                        ) -> Dict[str, torch.Tensor]:
-        """Hinge step, then the MAGP step (reference train.py:437-459).
-        Under FSDP (``sharded``: the D's module) the D is gathered again
-        after each update, for the MAGP and for the G phase."""
-        is_class_scale = use_class and i == n_scales - 1
+        """Hinge step, then the MAGP step (reference train.py:437-459),
+        eagerly. Under FSDP (``sharded``: the D's module) the D is
+        gathered again after each update, for the MAGP and for the G
+        phase."""
         params = list(disc.parameters())
 
         def update():
@@ -224,34 +262,62 @@ def build_train_step_fn(config: Config, models: ModelBundle,
                     m.gather()
 
         with span(hinge_spans[i]):
-            opt.zero_grad(set_to_none=True)
-            loss, metrics = hinge_loss(is_class_scale, disc, real, fake, sent,
-                                       unpair_sent, class_labels)
-            loss.backward()
+            metrics = hinge_unit(i, disc, opt, real, fake, sent, unpair_sent,
+                                 class_labels)
         update()
-        metrics = {f"errD_{i}/{k}": v.detach() for k, v in metrics.items()}
 
         # --- MAGP, a second step at the freshly updated parameters ---
         if "magp" in ablate:
             return metrics
-        chunks = rt.MAGP_CHUNKS
-        b = real.shape[0]
-        if b % chunks:
-            raise ValueError(f"MAGP_CHUNKS={chunks} must divide batch {b}")
         with span(magp_spans[i]):
-            opt.zero_grad(set_to_none=True)
-            # 2*mean(norm^6) over equal chunks is the full-batch mean; each
-            # chunk's double-backward graph is freed before the next is
-            # built.
-            gps = []
-            for img_c, sent_c in zip(real.chunk(chunks), sent.chunk(chunks)):
-                gp_c = _gradient_penalty(disc, img_c, sent_c, is_class_scale)
-                (gp_c / chunks).backward()
-                gps.append(gp_c.detach())
+            metrics[f"errD_{i}/d_loss_gp"] = magp_unit(i, disc, opt, real,
+                                                       sent)
         # The class head is off the penalty's path (a zero gradient).
         update()
-        metrics[f"errD_{i}/d_loss_gp"] = torch.stack(gps).mean()
         return metrics
+
+    def d_phase(state, inputs: d_graph.Inputs, shards
+                ) -> Dict[str, torch.Tensor]:
+        """Every scale's hinge and MAGP steps: replayed from the state's
+        capture of them when :func:`d_graph.eager_reason` allows (captured
+        first when there is none), else eagerly."""
+        discs, opts = state.discriminators, state.d_opts
+        graphs = state.d_graphs
+        if graphs is not None and graphs.stale(opts):
+            state.d_graphs = graphs = None
+        reason = d_graph.eager_reason(
+            dev, mesh, ablate, discs, opts, inputs,
+            None if graphs is None else graphs.signature)
+        d_graph.count(reason)
+        if reason is None:
+            if graphs is None:
+                state.d_graphs = graphs = d_graph.capture(
+                    graph_units(discs, opts), inputs, opts)
+            return graphs.run(inputs, hinge_spans, magp_spans)
+        metrics: Dict[str, torch.Tensor] = {}
+        for i, (disc, opt) in enumerate(zip(discs, opts)):
+            metrics.update(d_scale_update(
+                i, disc, opt, inputs.reals[i], inputs.fakes[i], inputs.sent,
+                inputs.unpair_sent, inputs.class_labels,
+                () if shards is None else (shards.discriminators[i],)))
+        return metrics
+
+    def graph_units(discs, opts) -> d_graph.Units:
+        """The units :func:`d_graph.capture` records, as
+        :func:`d_scale_update` runs them (no mesh, no FSDP)."""
+        params = [list(d.parameters()) for d in discs]
+
+        def hinge(i, x: d_graph.Inputs):
+            return hinge_unit(i, discs[i], opts[i], x.reals[i], x.fakes[i],
+                              x.sent, x.unpair_sent, x.class_labels)
+
+        def magp(i, x: d_graph.Inputs):
+            return magp_unit(i, discs[i], opts[i], x.reals[i], x.sent)
+
+        def update(i):
+            _apply_update(opts[i], params[i], None, tr.D_GRAD_CLIP)
+
+        return d_graph.Units(hinge, magp, update)
 
     def hinge_loss(is_class_scale, disc, real, fake, sent, unpair_sent,
                    class_labels):
@@ -405,13 +471,9 @@ def build_train_step_fn(config: Config, models: ModelBundle,
 
         metrics: Dict[str, torch.Tensor] = {}
         if "dsteps" not in ablate:
-            for i, (disc, opt) in enumerate(zip(state.discriminators,
-                                                state.d_opts)):
-                real = batch[f"img{models.scales[i]}"]
-                metrics.update(d_scale_update(
-                    i, disc, opt, real, fake_sg[i], d_sent, d_unpair,
-                    class_labels,
-                    () if shards is None else (shards.discriminators[i],)))
+            metrics.update(d_phase(state, d_graph.Inputs(
+                [batch[f"img{s}"] for s in models.scales], fake_sg, d_sent,
+                d_unpair, class_labels), shards))
 
         # --- G phase against the updated discriminators ---
         params = generator_params(state)
