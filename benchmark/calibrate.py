@@ -6,9 +6,10 @@
 For each seed of ``--seeds``, the check's numbers of a sound run (the
 program's first call against the reference, no window); for each
 ``--reading <kind>:<seeds>``, of that reading put in the program's
-place: ``control`` (the reference in float8) and, for a train cell, the
-other kinds of ``drivers/train.py:KINDS``, for a generate cell
-``altered``. One JSON line per reading on standard output; with
+place, as the cell's architecture (``architectures/<name>.py``) plants
+it: ``control`` (the reference in float8) and, for a train cell, the
+other kinds of its ``KINDS``, for a generate cell ``altered``. One JSON
+line per reading on standard output; with
 ``--detail`` (train cells) also the largest gap of any loss or tensor
 and the largest contributions to each. The benchmark's own runs never
 run this.
@@ -66,13 +67,17 @@ def main(argv=None) -> int:
     p.add_argument("--detail", action="store_true")
     args = p.parse_args(argv)
     cell = harness.find_cell(args.workload, ROOT)
-    dev = torch.device("cuda", 0)
-    torch.cuda.set_device(0)
     is_train = cell.traffic["kind"] == "train"
+    kinds = cell.arch.KINDS if is_train else cell.arch.IMAGE_KINDS
     runs = [("program", s) for s in args.seeds]
     for spec in args.reading:
         kind, seeds = spec.split(":")
+        if kind not in kinds:
+            p.error(f"{cell.name}'s architecture has no reading {kind!r}: "
+                    f"{', '.join(kinds)}")
         runs += [(kind, s) for s in ints(seeds)]
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(0)
     for kind, seed in runs:
         t0 = time.perf_counter()
         detail = None

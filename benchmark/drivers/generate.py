@@ -1,6 +1,6 @@
 """Traffic of kind ``generate``: a closed loop of one client asking the
 program's sampling step (``training/steps.py::make_sample_step``) for
-the 256² images of batches of captions.
+the images of batches of captions.
 
 The traffic file gives ``batch`` (captions per request), ``pool``
 (captions and attributes drawn once at set-up from the seed), ``warmup``
@@ -9,7 +9,10 @@ check keeps, a uniform sample of those the window completes, drawn from
 the seed). A request draws its rows of the pool and its noise from the
 seed; it starts when the host starts it and ends when its images are on
 the host as uint8 (a copy into pinned memory). The window's rate is over
-the host's clock; each request's latency over CUDA events.
+the host's clock; each request's latency over CUDA events. The cell's
+architecture (``architectures/<name>.py``) builds the sampling call,
+draws the pool, turns a request's rows into its images and holds the
+check.
 """
 
 from __future__ import annotations
@@ -21,49 +24,28 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from benchmark import check, harness, inputs, weights
-from benchmark.drivers.train import _sync, reference_nets
-from benchmark.reference import eegan, steps as ref_steps
-
-PARTS = ("generator", "attr_enhance", "text_encoder")
-
-
-def draw_weights(cell, seed: int, device):
-    return weights.make(reference_nets(cell, "meta", parts=PARTS), seed,
-                        device)
+from benchmark import check, harness
+from benchmark.drivers.train import _sync
 
 
 class Program:
     def __init__(self, cell, seed: int, device):
-        from eegan_tpu_torch.models.factory import build_models
-        from eegan_tpu_torch.training.steps import make_sample_step
-
         t = cell.traffic
-        self.cell, self.device, self.B = cell, device, t["batch"]
+        self.cell, self.arch, self.device = cell, cell.arch, device
+        self.B, self.pool_rows = t["batch"], t["pool"]
         (self.seed_w, seed_pool, seed_req, seed_z,
          seed_keep) = harness.seeds(seed, 5)
         config = harness.port_config(cell, self.B)
-        self.models = build_models(config, cell.config["n_words"],
-                                   device=device)
-        w = draw_weights(cell, self.seed_w, device)
-        weights.load(self.models.generator, w["generator"])
-        weights.load(self.models.attr_enhance, w["attr_enhance"])
-        weights.load(self.models.text_encoder, w["text_encoder"])
-        del w
-        self.sample = make_sample_step(config, self.models)
-        host = inputs.captions(cell.model, cell.config["n_words"],
-                               (t["pool"],),
-                               np.random.default_rng(seed_pool))
-        self.pool = {k: torch.from_numpy(v) if k.endswith("_lens")
-                     else torch.from_numpy(v).to(device)
-                     for k, v in host.items()}
+        self.sample = self.arch.build_sampler(cell, config, self.seed_w,
+                                              device)
+        self.pool = self.arch.caption_pool(cell, self.pool_rows, seed_pool,
+                                           device)
         self.rng = np.random.default_rng(seed_req)
         self.keep_rng = np.random.default_rng(seed_keep)
         self.gen = torch.Generator(device=device).manual_seed(seed_z)
-        self.z_dim = cell.model["GAN"]["Z_DIM"]
-        size = cell.model["TREE"]["BASE_SIZE"] * 2 ** (
-            cell.model["TREE"]["BRANCH_NUM"] - 1)
-        self.out = torch.empty((self.B, size, size, 3), dtype=torch.uint8,
+        self.noise_shape = self.arch.noise_shape(cell, self.B)
+        self.out = torch.empty(self.arch.image_shape(cell, self.B),
+                               dtype=torch.uint8,
                                pin_memory=device.type == "cuda")
 
     def request(self):
@@ -79,16 +61,13 @@ class Program:
             end = torch.cuda.Event(enable_timing=True)
             start.record()
         t0 = time.perf_counter()
-        rows = self.rng.choice(len(self.pool["caps"]), self.B, replace=False)
+        rows = self.rng.choice(self.pool_rows, self.B, replace=False)
         idx = torch.from_numpy(rows)
         dev_idx = idx.to(self.device)
-        noise = torch.randn((self.B, self.z_dim), generator=self.gen,
+        noise = torch.randn(self.noise_shape, generator=self.gen,
                             device=self.device)
-        imgs = self.sample(self.pool["caps"][dev_idx],
-                           self.pool["cap_lens"][idx],
-                           self.pool["attrs"][dev_idx],
-                           self.pool["attr_lens"][idx], noise)
-        self.out.copy_(ref_steps.to_uint8(imgs[-1]))
+        self.out.copy_(self.arch.sample_images(self.sample, self.pool, idx,
+                                               dev_idx, noise))
         if end is None:
             return (idx, noise), self.out, time.perf_counter() - t0
         end.record()
@@ -96,29 +75,10 @@ class Program:
         return (idx, noise), self.out, 1e-3 * start.elapsed_time(end)
 
     def free(self) -> None:
-        self.models = self.sample = self.pool = None
+        self.sample = self.pool = None
         gc.collect()
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
-
-
-def reference_images(cell, seed_w: int, pool, requests, device, quant=None):
-    """The reference's uint8 images of each kept request."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    nets = reference_nets(cell, device, quant, parts=PARTS)
-    w = draw_weights(cell, seed_w, device)
-    for key, net in nets.items():
-        weights.load(net, w[key])
-    del w
-    out = []
-    for idx, noise in requests:
-        dev_idx = idx.to(device)
-        img = ref_steps.sample(nets, cell.model, pool["caps"][dev_idx],
-                               pool["cap_lens"][idx], pool["attrs"][dev_idx],
-                               pool["attr_lens"][idx], noise.to(device))
-        out.append(ref_steps.to_uint8(img).cpu().numpy())
-    return out
 
 
 def _program_images(cell, seed: int, device):
@@ -139,10 +99,7 @@ def _drawn_requests(cell, seed: int, device):
     :class:`Program` draws from ``seed``."""
     t = cell.traffic
     seed_w, seed_pool, seed_req, seed_z, _ = harness.seeds(seed, 5)
-    host = inputs.captions(cell.model, cell.config["n_words"], (t["pool"],),
-                           np.random.default_rng(seed_pool))
-    pool = {k: torch.from_numpy(v) if k.endswith("_lens")
-            else torch.from_numpy(v).to(device) for k, v in host.items()}
+    pool = cell.arch.caption_pool(cell, t["pool"], seed_pool, device)
     rng = np.random.default_rng(seed_req)
     gen = torch.Generator(device=device).manual_seed(seed_z)
     requests = []
@@ -150,58 +107,24 @@ def _drawn_requests(cell, seed: int, device):
         idx = torch.from_numpy(rng.choice(t["pool"], t["batch"],
                                           replace=False))
         requests.append((idx, torch.randn(
-            (t["batch"], cell.model["GAN"]["Z_DIM"]), generator=gen,
+            cell.arch.noise_shape(cell, t["batch"]), generator=gen,
             device=device)))
     return seed_w, pool, requests
 
 
 def numbers_of(cell, seed: int, device, kind: str = "program"
                ) -> Dict[str, float]:
-    """The check's number over the first ``kept`` requests of a sound run
-    (``kind="program"``), of the reference in float8 put in the
-    program's place (``"control"``), or of the float32 reference whose
-    first image of each answer takes the second row's noise
-    (``"altered"``)."""
+    """The check's numbers over the first ``kept`` requests of a sound run
+    (``kind="program"``), or of one of the architecture's
+    ``IMAGE_KINDS`` put in the program's place."""
     if kind == "program":
         seed_w, pool, requests, images = _program_images(cell, seed, device)
-        ref = reference_images(cell, seed_w, pool, requests, device)
-        return {"image_gap": check.image_gap(images, ref)}
-    seed_w, pool, requests = _drawn_requests(cell, seed, device)
-    ref = reference_images(cell, seed_w, pool, requests, device)
-    if kind == "altered":
-        moved = []
-        for idx, noise in requests:
-            noise = noise.clone()
-            noise[0] = noise[1]
-            moved.append((idx, noise))
-        other = reference_images(cell, seed_w, pool, moved, device)
-    elif kind == "control":
-        other = reference_images(cell, seed_w, pool, requests, device,
-                                 quant=eegan.fp8_round)
     else:
-        raise ValueError(f"no reading {kind!r} of a generate cell")
-    return {"image_gap": check.image_gap(other, ref)}
-
-
-def sample_ops(cell, batch: int) -> int:
-    """Operations of the reference's sampling of one request, counted on
-    the ``meta`` device."""
-    from benchmark.opcount import OpCounter
-
-    meta = torch.device("meta")
-    nets = reference_nets(cell, meta, parts=PARTS)
-    t = cell.model["TEXT"]
-    caps = torch.ones((batch, t["WORDS_NUM"]), dtype=torch.int64,
-                      device=meta)
-    lens = torch.full((batch,), t["WORDS_NUM"], dtype=torch.int64)
-    attrs = torch.ones((batch, t["MAX_ATTR_NUM"], t["MAX_ATTR_LEN"]),
-                       dtype=torch.int64, device=meta)
-    attr_lens = torch.full((batch, t["MAX_ATTR_NUM"]), t["MAX_ATTR_LEN"])
-    noise = torch.empty((batch, cell.model["GAN"]["Z_DIM"]), device=meta)
-    with OpCounter() as counter:
-        ref_steps.sample(nets, cell.model, caps, lens, attrs, attr_lens,
-                         noise)
-    return counter.total
+        seed_w, pool, requests = _drawn_requests(cell, seed, device)
+        images = cell.arch.reference_images(cell, seed_w, pool, requests,
+                                            device, kind)
+    return cell.arch.image_numbers(cell, seed_w, pool, requests, images,
+                                   device)
 
 
 def percentile(values: List[float], q: float) -> float:
@@ -253,33 +176,27 @@ def run(cell, args, device, t_start: float, log) -> harness.Outcome:
         from benchmark import trace
 
         traced = t["traced_requests"]
-        traced_batches = []
+        idxs = []
 
         def stretch():
             for _ in range(traced):
                 (idx, _), _, _ = prog.request()
-                traced_batches.append(
-                    dict(rows=prog.B,
-                         cap_lens=prog.pool["cap_lens"][idx].tolist()))
+                idxs.append(idx)
 
         summary = trace.profile(stretch, lambda: _sync(device),
                                 args.trace_file)
-        elem = torch.empty((), dtype=getattr(
-            torch, cell.settings["runtime"]["COMPUTE_DTYPE"])).element_size()
         obs.update(trace=summary, traced_requests=traced,
-                   traced_batches=traced_batches,
-                   affine=dict(B=prog.B, ngf=cell.model["GAN"]["GF_DIM"],
-                               elem=elem),
-                   ops_per_request=sample_ops(cell, prog.B),
-                   peak_flops=harness.H100_BF16_FLOPS)
+                   peak_flops=harness.H100_BF16_FLOPS,
+                   **cell.arch.traced_generate(cell, prog.pool, idxs, prog.B))
     peak = (torch.cuda.max_memory_allocated()
             if device.type == "cuda" else 0)
     e2e["peak_mem_gib"] = peak / 2 ** 30
     pool, seed_w = prog.pool, prog.seed_w
     prog.free()
 
-    ref = reference_images(cell, seed_w, pool, [r for r, _ in kept], device)
-    numbers = {"image_gap": check.image_gap([im for _, im in kept], ref)}
+    numbers = cell.arch.image_numbers(cell, seed_w, pool,
+                                      [r for r, _ in kept],
+                                      [im for _, im in kept], device)
     return harness.Outcome(
         attempted=n, failed=0, end_to_end=e2e, observations=obs,
         peak_bytes=peak, checks=check.checks(numbers,

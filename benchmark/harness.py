@@ -5,7 +5,10 @@ line.
 
 Everything of one cell is data found by name: ``BENCHMARK.json``'s
 entries, ``configs/<config>.json`` (the model's sizes, as upstream
-publishes them), ``workloads/<cell>.json`` (the program's RUNTIME
+publishes them, and the name of its architecture),
+``architectures/<name>.py`` (the architecture's networks, weights,
+inputs, check and operation counts, which the drivers call),
+``workloads/<cell>.json`` (the program's RUNTIME
 settings and the limits of the correctness check), ``traffic/<mix>.json``
 (the parameters that the generator of its ``kind``, ``drivers/<kind>.py``,
 reads) and ``metrics/<metric>.py`` (one per-layer metric's reader).
@@ -63,6 +66,7 @@ class Cell:
     end_to_end: List[Dict]  # the end-to-end metrics this cell reports
     per_layer: List[Dict]  # the per-layer metrics read in this cell
     root: Path = ROOT  # the checkout that holds BENCHMARK.json
+    arch: Any = None  # architectures/<config's "architecture">.py
 
     @property
     def model(self) -> Dict:
@@ -88,23 +92,43 @@ def find_cell(name: str, root: Path = ROOT) -> Cell:
     per_layer = [m for m in spec["per_layer"]
                  if applies(m, name, e2e_names)]
     settings = load_json(here / "workloads" / f"{name}.json")
+    config_path = here / "configs" / f"{w['config']}.json"
+    config = load_json(config_path)
     return Cell(name=name, chips=int(w["chips"]), config_name=w["config"],
-                traffic_name=w["traffic"],
-                config=load_json(here / "configs" / f"{w['config']}.json"),
-                settings=settings,
+                traffic_name=w["traffic"], config=config, settings=settings,
                 traffic=load_json(here / "traffic" / f"{w['traffic']}.json"),
-                end_to_end=e2e, per_layer=per_layer, root=root)
+                end_to_end=e2e, per_layer=per_layer, root=root,
+                arch=architecture(config, config_path, root))
+
+
+def _load(path: Path, prefix: str, name: str):
+    """The module in the file ``path``, under a name of its own."""
+    spec = importlib.util.spec_from_file_location(
+        prefix + "".join(c if c.isalnum() else "_" for c in name), path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def architecture(config: Dict, config_path: Path, root: Path = ROOT):
+    """``architectures/<name>.py`` of the configuration's
+    ``architecture``: the benchmark's own choice of networks, weights,
+    check and counts, whatever the port's configuration holds."""
+    name = config.get("architecture")
+    if not isinstance(name, str) or not name.isidentifier():
+        raise KeyError(f"{config_path}: no \"architecture\" names an "
+                       "architectures/<name>.py")
+    path = root / HERE.name / "architectures" / f"{name}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"{path}: no such architecture, named by "
+                                f"{config_path}")
+    return _load(path, "benchmark_architecture_", name)
 
 
 def metric_reader(name: str, root: Path = ROOT) -> Callable:
     """``metrics/<name>.py``'s ``read(obs) -> float | None``."""
-    path = root / HERE.name / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(
-        "benchmark_metric_" + "".join(c if c.isalnum() else "_"
-                                      for c in name), path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module.read
+    return _load(root / HERE.name / "metrics" / f"{name}.py",
+                 "benchmark_metric_", name).read
 
 
 def driver(kind: str):

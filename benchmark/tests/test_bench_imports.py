@@ -1,7 +1,9 @@
 """What the benchmark may import: nothing of JAX or of the JAX package
 (top-level names compared whole: the port's name begins with the JAX
-package's), none of the repository's root scripts, and in the reference
-nothing of the port either."""
+package's), none of the repository's root scripts, in the reference
+nothing of the port either, and the reference only in the architectures
+and ``calibrate.py``: the drivers reach it through a cell's
+architecture."""
 
 import ast
 import subprocess
@@ -13,14 +15,26 @@ from benchmark import harness, run
 ROOT_SCRIPTS = {p.stem for p in harness.ROOT.glob("*.py")}
 
 
-def imports(path):
+def modules(path):
+    """Every module ``path`` imports, by its whole dotted name (``from a
+    import b`` gives ``a`` and ``a.b``)."""
     names = set()
     for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
-            names |= {a.name.split(".")[0] for a in node.names}
-        elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            names.add(node.module.split(".")[0])
+            names |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            base = node.module or ""
+            if node.level:
+                package = path.relative_to(harness.ROOT).parent.parts
+                up = package[:len(package) - node.level + 1]
+                base = ".".join([*up, base] if base else up)
+            names.add(base)
+            names |= {f"{base}.{a.name}" for a in node.names}
     return names
+
+
+def imports(path):
+    return {m.split(".")[0] for m in modules(path)}
 
 
 def sources(sub=""):
@@ -43,6 +57,19 @@ def test_the_reference_imports_nothing_of_the_port():
         assert "eegan_tpu_torch" not in imports(harness.HERE / name), name
 
 
+def test_only_the_architectures_and_calibrate_import_the_reference():
+    allowed = {harness.HERE / "calibrate.py"}
+    for sub in ("architectures", "reference", "tests"):
+        allowed |= set(sources(sub))
+    for path in sources():
+        found = {m for m in modules(path)
+                 if m == "benchmark.reference"
+                 or m.startswith("benchmark.reference.")}
+        assert path in allowed or not found, (path, found)
+    assert any("benchmark.reference.eegan" in modules(path)
+               for path in sources("architectures"))
+
+
 def test_top_level_names_are_compared_whole(monkeypatch):
     for name in ("eegan_tpu_torch", "eegan_tpu_torch.ops", "jaxtyping",
                  "flaxen"):
@@ -56,7 +83,8 @@ def test_top_level_names_are_compared_whole(monkeypatch):
 
 def test_the_port_and_the_benchmark_load_no_jax():
     code = ("import sys; import benchmark.run, benchmark.drivers.train, "
-            "benchmark.drivers.generate, eegan_tpu_torch.training.steps, "
+            "benchmark.drivers.generate, benchmark.architectures.eegan, "
+            "eegan_tpu_torch.training.steps, "
             "eegan_tpu_torch.models.factory; from benchmark import harness; "
             "print(harness.forbidden_modules())")
     out = subprocess.run([sys.executable, "-c", code], cwd=harness.ROOT,

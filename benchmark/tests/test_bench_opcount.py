@@ -8,7 +8,6 @@ import pytest
 import torch
 
 from benchmark import harness, inputs
-from benchmark.drivers import generate, train
 
 
 def port_step_ops(cell, batch_rows, pool):
@@ -35,7 +34,7 @@ def test_reference_count_matches_the_ports_count(tiny_root, cell_name):
     rows = cell.traffic["batch_per_card"]
     pool = inputs.train_pool(cell.model, cell.config["n_words"], 1, rows, 7,
                              torch.device("cpu"))
-    ours = train.step_ops(cell, rows, inputs.step_batch(
+    ours = cell.arch.step_ops(cell, rows, inputs.step_batch(
         pool, 0, torch.device("meta")))
     theirs = port_step_ops(cell, rows, pool)
     assert ours / theirs == pytest.approx(1.0, abs=0.005), (ours, theirs)
@@ -54,10 +53,10 @@ def test_published_shapes_count():
         rows = cell.traffic["batch_per_card"]
         pool = inputs.train_pool(cell.model, cell.config["n_words"], 1, rows,
                                  3, torch.device("cpu"))
-        counts[cell.name] = train.step_ops(cell, rows,
-                                           inputs.step_batch(pool, 0, meta))
+        counts[cell.name] = cell.arch.step_ops(
+            cell, rows, inputs.step_batch(pool, 0, meta))
     assert counts["bird-train-b32"] / 8.923e12 == pytest.approx(1, abs=0.01)
     assert 2.5 < counts["coco-train-b24"] / counts["bird-train-b32"] < 3.0
     gen = harness.find_cell("bird-generate-b128")
-    assert 3.0e12 < generate.sample_ops(gen, 128) < 3.6e12
+    assert 3.0e12 < gen.arch.sample_ops(gen, 128) < 3.6e12
     assert np.isfinite(list(counts.values())).all()

@@ -101,9 +101,17 @@ def test_every_entry_has_its_files():
     spec = harness.benchmark_spec()
     for c in spec["configs"]:
         assert (harness.ROOT / c["file"]).is_file()
+        name = json.loads((harness.ROOT / c["file"]).read_text())[
+            "architecture"]
+        assert (harness.HERE / "architectures" / f"{name}.py").is_file()
     for w in spec["workloads"]:
         cell = harness.find_cell(w["name"])
-        assert cell.traffic["kind"] in ("train", "generate")
+        kind = cell.traffic["kind"]
+        assert (harness.HERE / "drivers" / f"{kind}.py").is_file(), kind
+        assert callable(harness.driver(kind).run), kind
+        assert cell.arch.__file__ == str(
+            harness.HERE / "architectures"
+            / f"{cell.config['architecture']}.py")
         assert set(cell.settings) == {"runtime", "limits"}
         assert {m["name"] for m in cell.end_to_end} >= {"setup_s",
                                                         "peak_mem_gib"}
@@ -150,3 +158,22 @@ def test_a_cell_and_a_metric_added_as_files_run(tiny_root):
                       (16, 64, 64, True), (8, 128, 128, False),
                       (8, 128, 128, True), (4, 256, 256, False)]))
     assert harness.correct(out.checks), out.checks
+
+
+@pytest.mark.parametrize("named", [None, "attngan"])
+def test_a_configuration_without_its_architecture_fails_at_find_cell(
+        tiny_root, named):
+    """A configuration that names no architecture, or one with no file,
+    fails where the cell is found, naming the file at fault."""
+    path = tiny_root / "benchmark" / "configs" / "eegan-bird.json"
+    config = json.loads(path.read_text())
+    if named is None:
+        del config["architecture"]
+        missing = path
+    else:
+        config["architecture"] = named
+        missing = tiny_root / "benchmark" / "architectures" / f"{named}.py"
+    path.write_text(json.dumps(config))
+    with pytest.raises((KeyError, FileNotFoundError)) as err:
+        harness.find_cell("bird-train-b32", tiny_root)
+    assert str(missing) in str(err.value)
