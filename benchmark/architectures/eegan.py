@@ -15,18 +15,24 @@ For ``drivers/train.py``:
 * ``noise_shape(cell, rows)``: one step's (or request's) noise.
 * ``train_pool(cell, batches, rows, seed, device)``: the pool of
   batches, leaves (batches, rows, ...), lengths on the host.
-* ``build_train(cell, config, seed_w, device)``: (state, frozen, the
-  K-step call, the trained tensors at the start on the host).
+* ``build_train(cell, config, seed_w, device, mesh=False)``: (state,
+  frozen, the K-step call, the trained tensors at the start on the host);
+  with ``mesh``, on the data mesh of the process group this process has
+  joined (``drivers/train_mesh.py``).
 * ``Capture(cell, state, start, steps)``: optimizer hooks over the first
   call; ``.readings(losses)`` gives (readings, seen) once ``.remove()``
   has run.
-* ``numbers(cell, seed_w, readings, seen, batches, noises, device)``: the
-  check's numbers and the reference's readings.
+* ``numbers(cell, seed_w, readings, seen, batches, noises, device,
+  mesh=False)``: the check's numbers and the reference's readings.
 * ``KINDS``, ``reference_readings(cell, seed_w, batches, noises, device,
-  kind=None)``: the reference's readings, or one of ``KINDS`` put in the
-  program's place.
+  kind=None, mesh=False)``: the reference's readings, or one of ``KINDS``
+  put in the program's place. With ``mesh`` every process of the group
+  calls them with its rows, and the reference computes the global
+  batch's step (``reference/eegan_mesh.py``); its readings put in the
+  program's place are ``MESH_KINDS``.
 * ``step_ops(cell, rows, batch)``; ``traced_train(cell, pool, first,
-  steps, rows)``: the observations the traced call adds.
+  steps, rows, ranks=1)``: the observations the traced call adds (rows
+  a card; the pool's global batches of ``rows`` x ``ranks``).
 
 For ``drivers/generate.py``:
 
@@ -52,7 +58,7 @@ import numpy as np
 import torch
 
 from benchmark import check, inputs, weights
-from benchmark.reference import eegan, steps as ref_steps
+from benchmark.reference import eegan, eegan_mesh, steps as ref_steps
 
 VALUE = "errG/total"
 PARTS = ("generator", "attr_enhance", "text_encoder")  # sampling's networks
@@ -97,16 +103,26 @@ def load_program_weights(models, w) -> None:
     weights.load(models.image_encoder, w["image_encoder"])
 
 
-def build_train(cell, config, seed_w: int, device):
+def build_train(cell, config, seed_w: int, device, mesh: bool = False):
     """The program (``models/factory.py::build_models``,
     ``training/state.py::create_train_state``,
     ``training/steps.py::make_multi_train_step``) with the seed's
     weights: (state, frozen, the K-step call, each trained tensor at the
-    start on the host)."""
+    start on the host). With ``mesh``, on the data mesh of the process
+    group this process has joined (``parallel/mesh.py::Mesh.current``),
+    which ``config``'s RUNTIME.MESH has to describe."""
     from eegan_tpu_torch.models.factory import build_models
     from eegan_tpu_torch.training.state import create_train_state
     from eegan_tpu_torch.training.steps import make_multi_train_step
 
+    on = None
+    if mesh:
+        from eegan_tpu_torch.parallel.mesh import Mesh, mesh_shape
+
+        on = Mesh.current(device)
+        if mesh_shape(config.RUNTIME.MESH, on.size) != (on.size, 1):
+            raise ValueError(f"RUNTIME.MESH {config.RUNTIME.MESH!r} is not "
+                             f"the data mesh of {on.size} processes")
     models = build_models(config, cell.config["n_words"], device=device)
     w = draw_weights(cell, seed_w, device)
     load_program_weights(models, w)
@@ -114,8 +130,8 @@ def build_train(cell, config, seed_w: int, device):
              if net not in ("text_encoder", "image_encoder")
              for n, t in state.items()}
     del w
-    state, frozen = create_train_state(config, models)
-    return state, frozen, make_multi_train_step(config, models), start
+    state, frozen = create_train_state(config, models, on)
+    return state, frozen, make_multi_train_step(config, models, mesh=on), start
 
 
 def trained_names(state) -> Dict[int, str]:
@@ -136,7 +152,10 @@ class Capture:
     moments; and each trained tensor's change over the first ``steps``
     steps, read when the first discriminator's optimizer is about to make
     its first update of the next step (two updates a step: the hinge's,
-    the MAGP's), so as far as that step keeps them."""
+    the MAGP's), so as far as that step keeps them; and the generator's
+    batch norms' running statistics when the generator's optimizer has
+    made its first update, one forward after the seed's, from which
+    :meth:`readings` takes the first step's batch moments."""
 
     def __init__(self, cell, state, start: Dict[str, torch.Tensor],
                  steps: int):
@@ -150,6 +169,10 @@ class Capture:
         self.magp_state: Dict[str, torch.Tensor] = {}
         self.magp_grads: Dict[str, float] = {}
         self.m1: Dict[str, torch.Tensor] = {}  # a discriminator's first m
+        self.norms = {f"generator.{n}": m
+                      for n, m in state.generator.named_modules()
+                      if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)}
+        self.running: Dict[str, tuple] = {}
         self.g_opt = state.g_opt
         self.d_params = {self.names[id(p)]: p for o in state.d_opts
                          for g in o.param_groups for p in g["params"]}
@@ -178,6 +201,10 @@ class Capture:
                 self.d_state = {
                     k: p.detach().to("cpu", torch.float32, copy=True)
                     for k, p in self.d_params.items()}
+                self.running = {
+                    k: (m.running_mean.detach().to("cpu", torch.float64),
+                        m.running_var.detach().to("cpu", torch.float64),
+                        m.momentum) for k, m in self.norms.items()}
             for name, p, m in self._moments(opt):
                 self.first[name] = (math.nan if m is None
                                     else float(m.norm()) / (1.0 - self.b1))
@@ -206,23 +233,38 @@ class Capture:
                          - self.start[self.names[id(p)]]).norm())
                     for p in self.params}
 
+    def batch_moments(self) -> Dict[str, tuple]:
+        """Each generator batch norm's first batch (mean, unbiased
+        variance) per channel, from its running statistics after one
+        forward: running = (1 - momentum) x the seed's + momentum x the
+        batch's."""
+        out = {}
+        for k, (mean, var, mom) in self.running.items():
+            m0 = self.start[f"{k}.running_mean"].double()
+            v0 = self.start[f"{k}.running_var"].double()
+            out[k] = ((mean - (1.0 - mom) * m0) / mom,
+                      (var - (1.0 - mom) * v0) / mom)
+        return out
+
     def readings(self, losses):
         """(the run's readings: losses per checked step, first gradients,
         changes; what the reference is held to beside them, the ``seen``
-        of ``reference.steps.train``)."""
+        of ``reference.steps.train``, and the generator's first batch
+        moments, ``bn``)."""
         return ((losses, self.first, self.change or {}),
                 dict(d_state=self.d_state, magp_state=self.magp_state,
-                     magp_grads=self.magp_grads))
+                     magp_grads=self.magp_grads, bn=self.batch_moments()))
 
     def remove(self) -> None:
         for h in self.handles:
             h.remove()
 
 
-def _reference(cell, seed_w: int, device, quant=None, d_quant=None):
+def _reference(cell, seed_w: int, device, quant=None, d_quant=None,
+               exchange=None):
     """The reference's networks with the seed's weights, float32 with
     TF32 off; rounded by ``quant``, the discriminators alone by
-    ``d_quant``."""
+    ``d_quant``; bound to ``exchange``'s global batch."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     nets = reference_nets(cell, device, quant)
@@ -232,7 +274,7 @@ def _reference(cell, seed_w: int, device, quant=None, d_quant=None):
     w = draw_weights(cell, seed_w, device)
     for key, net in nets.items():
         weights.load(net, w[key])
-    return nets
+    return nets if exchange is None else exchange.bind(nets)
 
 
 # Readings put in the program's place to set the limits (calibrate.py):
@@ -244,46 +286,73 @@ KINDS = {"control": dict(quant=eegan.fp8_round),
          "half_batch": dict(fault="half_batch"),
          "no_magp": dict(fault="no_magp"),
          "fp8_d": dict(d_quant=eegan.fp8_round)}
+# On a data mesh (drivers/train_mesh.py): the control, the reference of
+# the global step in float8; faults of the mesh planted in the float32
+# reference of the global step (reference/eegan_mesh.py): ``local_bn``,
+# ``local_grads``, ``local_damsm``.
+MESH_KINDS = {"control": dict(quant=eegan.fp8_round),
+              **{f: dict(fault=f) for f in eegan_mesh.FAULTS}}
 
 
 def reference_readings(cell, seed_w: int, batches, noises, device,
-                       kind: Optional[str] = None):
+                       kind: Optional[str] = None, mesh: bool = False):
     """The reference's three steps from the seed's weights, float32 or
-    as ``KINDS[kind]`` plants: (losses per step, first gradients,
-    changes, what ``reference.steps.train``'s ``seen`` holds)."""
-    kw = dict(KINDS[kind]) if kind else {}
+    as ``KINDS[kind]`` (``MESH_KINDS[kind]`` with ``mesh``) plants:
+    (losses per step, first gradients, changes, what
+    ``reference.steps.train``'s ``seen`` holds). With ``mesh`` every
+    process of the group calls it with its rows, and ``seen`` holds the
+    generator's first batch moments too (``bn``)."""
+    kw = dict((MESH_KINDS if mesh else KINDS)[kind]) if kind else {}
     fault = kw.pop("fault", None)
-    nets = _reference(cell, seed_w, device, **kw)
-    out = ref_steps.train(nets, cell.model, batches, noises, fault=fault)
+    if not mesh:
+        nets = _reference(cell, seed_w, device, **kw)
+        out = ref_steps.train(nets, cell.model, batches, noises, fault=fault)
+    else:
+        ex = eegan_mesh.Exchange(fault=fault)
+        nets = _reference(cell, seed_w, device, exchange=ex, **kw)
+        out = ref_steps.train(nets, cell.model, batches, noises, exchange=ex)
+        out[3]["bn"] = ex.moments
     del nets
     _release(device)
     return out
 
 
-def numbers(cell, seed_w: int, readings, seen, batches, noises, device):
+def numbers(cell, seed_w: int, readings, seen, batches, noises, device,
+            mesh: bool = False):
     """The check's numbers of ``readings`` (losses, first gradients,
     changes) of a run that ``seen`` describes: against the float32
     reference's three steps; the generator's first gradient against the
     reference's at the discriminators the run's first generator phase
     saw; each discriminator's first MAGP gradient against the
-    reference's at the parameters the run's first MAGP saw. Returns
-    (numbers, the reference's readings)."""
-    ref = reference_readings(cell, seed_w, batches, noises, device)
+    reference's at the parameters the run's first MAGP saw. With
+    ``mesh`` every process of the group calls it with its rows and its
+    run's readings, the reference is the global batch's step, and the
+    generator's first batch moments are held to the reference's.
+    Returns (numbers, the reference's readings)."""
+    ref = reference_readings(cell, seed_w, batches, noises, device,
+                             mesh=mesh)
     out = check.train_numbers(readings, ref[:3])
 
     def on_device(state):
         return {k: v.to(device) for k, v in state.items()}
 
-    nets = _reference(cell, seed_w, device)
+    ex = eegan_mesh.Exchange() if mesh else None
+    nets = _reference(cell, seed_w, device, exchange=ex)
     g_ref = ref_steps.first_g_grads(nets, cell.model, batches[0], noises[0],
-                                    on_device(seen["d_state"]))
+                                    on_device(seen["d_state"]), exchange=ex)
     magp_ref = ref_steps.magp_grads(nets, cell.model, batches[0],
-                                    on_device(seen["magp_state"]))
+                                    on_device(seen["magp_state"]),
+                                    exchange=ex)
     del nets
     _release(device)
     out["grad_gap_g_pd_median"] = check.pd_gap(readings[1], g_ref)
     out["grad_gap_magp_pd_median"] = check.pd_gap(seen["magp_grads"],
                                                   magp_ref)
+    if mesh:
+        out["loss_gap_damsm_first_mean"] = check.damsm_first_mean(
+            readings[0], ref[0])
+        out["bn_gap_first_max"] = max(
+            check.bn_gaps(seen.get("bn", {}), ref[3]["bn"]).values())
     return out, ref
 
 
@@ -305,19 +374,24 @@ def step_ops(cell, rows: int, batch) -> int:
     return counter.total
 
 
-def traced_train(cell, pool, first: int, steps: int, rows: int) -> Dict:
+def traced_train(cell, pool, first: int, steps: int, rows: int,
+                 ranks: int = 1) -> Dict:
     """What the traced call of pool batches ``first`` .. +``steps`` adds
-    to the observations: each step's rows and caption lengths, the words
-    similarity's shapes (``damsm``), the step's operations."""
+    to the observations of a card that trains ``rows`` of each batch of
+    ``rows`` x ``ranks`` (``pool``: the global batches): each step's
+    caption lengths, the words similarity's shapes on the card
+    (``damsm``: its images against every text), the card's share of
+    the global step's operations."""
     lens = pool["cap_lens"][first:first + steps]
     t = cell.model["TEXT"]
     return dict(
-        traced_batches=[dict(rows=rows, cap_lens=l.tolist()) for l in lens],
-        damsm=[dict(Bi=rows, Bt=rows, S=17 * 17, L=t["WORDS_NUM"],
+        traced_batches=[dict(rows=rows * ranks, cap_lens=l.tolist())
+                        for l in lens],
+        damsm=[dict(Bi=rows, Bt=rows * ranks, S=17 * 17, L=t["WORDS_NUM"],
                     D=t["EMBEDDING_DIM"], valid_words=int(l.sum()))
                for l in lens],
-        ops_per_step=step_ops(cell, rows, inputs.step_batch(
-            pool, 0, torch.device("meta"))))
+        ops_per_step=step_ops(cell, rows * ranks, inputs.step_batch(
+            pool, 0, torch.device("meta"))) / ranks)
 
 
 # --- generation --------------------------------------------------------

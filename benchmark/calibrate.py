@@ -8,11 +8,14 @@ program's first call against the reference, no window); for each
 ``--reading <kind>:<seeds>``, of that reading put in the program's
 place, as the cell's architecture (``architectures/<name>.py``) plants
 it: ``control`` (the reference in float8) and, for a train cell, the
-other kinds of its ``KINDS``, for a generate cell ``altered``. One JSON
-line per reading on standard output; with
-``--detail`` (train cells) also the largest gap of any loss or tensor
-and the largest contributions to each. The benchmark's own runs never
-run this.
+other kinds of its ``KINDS``, for a generate cell ``altered``; for a
+cell whose traffic kind runs several cards (``train_mesh``), the kinds
+of its ``MESH_KINDS``, read by as many ranks as a run has, this process
+the first. A reading the cell's architecture does not have is refused
+before anything runs. One JSON line per reading on standard output;
+with ``--detail`` (train cells) also the largest gap of any loss or
+tensor and the largest contributions to each. The benchmark's own runs
+never run this.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import torch
 
 from benchmark import check, harness
 from benchmark.drivers import generate, train
-from benchmark.run import ROOT, set_caches
+from benchmark.run import ROOT, log, set_caches
 
 
 def ints(text):
@@ -37,10 +40,14 @@ def ints(text):
 def worst(prog, ref, n: int = 8) -> Dict[str, List]:
     """The largest gap of any loss or tensor, and the ``n`` largest
     contributions to each with the program's and the reference's values:
-    what a reader needs to tell rounding from a fault."""
-    p_loss, p_grad, p_change = prog
-    r_loss, r_grad, r_change = ref
+    what a reader needs to tell rounding from a fault; on a mesh also
+    each generator batch norm's gap of its first batch moments.
+    ``prog``, ``ref``: (losses, first gradients, changes, seen)."""
+    p_loss, p_grad, p_change, p_seen = prog
+    r_loss, r_grad, r_change, r_seen = ref
     out = {}
+    if "bn" in r_seen:
+        out["bn_gap"] = check.bn_gaps(p_seen.get("bn", {}), r_seen["bn"])
     for name, gaps, pv, rv in (
             ("loss_gap", check.loss_gaps(p_loss, r_loss),
              {f"{i}:{k}": v for i, d in enumerate(p_loss)
@@ -67,8 +74,11 @@ def main(argv=None) -> int:
     p.add_argument("--detail", action="store_true")
     args = p.parse_args(argv)
     cell = harness.find_cell(args.workload, ROOT)
-    is_train = cell.traffic["kind"] == "train"
-    kinds = cell.arch.KINDS if is_train else cell.arch.IMAGE_KINDS
+    drv = harness.driver(cell.traffic["kind"])
+    mesh = drv.CARDS > 1
+    is_train = cell.traffic["kind"] in ("train", "train_mesh")
+    kinds = getattr(cell.arch, "MESH_KINDS" if mesh else
+                    "KINDS" if is_train else "IMAGE_KINDS", {})
     runs = [("program", s) for s in args.seeds]
     for spec in args.reading:
         kind, seeds = spec.split(":")
@@ -78,20 +88,21 @@ def main(argv=None) -> int:
         runs += [(kind, s) for s in ints(seeds)]
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(0)
-    for kind, seed in runs:
-        t0 = time.perf_counter()
-        detail = None
-        if is_train:
-            numbers, prog, ref = train.readings_of(cell, seed, dev, kind)
-            if args.detail:
-                detail = worst(prog, ref)
-        else:
-            numbers = generate.numbers_of(cell, seed, dev, kind)
+    if mesh:
+        found = drv.readings(cell, runs, dev, log)
+    elif is_train:
+        found = ((k, s, train.readings_of(cell, s, dev, k)) for k, s in runs)
+    else:
+        found = ((k, s, (generate.numbers_of(cell, s, dev, k),))
+                 for k, s in runs)
+    t0 = time.perf_counter()
+    for kind, seed, read in found:
         line = {"cell": cell.name, "reading": kind, "seed": seed,
-                "numbers": numbers, "seconds": time.perf_counter() - t0}
-        if detail:
-            line["detail"] = detail
+                "numbers": read[0], "seconds": time.perf_counter() - t0}
+        if is_train and args.detail:
+            line["detail"] = worst(read[1], read[2])
         print(json.dumps(line), flush=True)
+        t0 = time.perf_counter()
     return 0
 
 

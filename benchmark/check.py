@@ -24,6 +24,17 @@ reference's value and the median tensor's of the same optimizer.
   its change over the checked steps, leaving out the tensors whose
   reference gradient is under a thousandth of the median tensor's (Adam
   moves them by its rounding).
+* ``loss_gap_damsm_first_mean`` (a data mesh's cells): the mean gap of
+  the first step's DAMSM sentence, words and attribute losses, computed
+  on both sides from the seed's weights before any generator update and
+  over the whole batch's grid of images and texts, which the mesh's
+  processes hold in parts (:func:`damsm_first_mean`).
+* ``bn_gap_first_max`` (a data mesh's cells): the generator's batch
+  norms' first batch moments, the program's (from its running
+  statistics) against the reference's over the whole batch; per norm
+  the root mean square over channels of the mean's and the standard
+  deviation's gaps in units of the reference's standard deviation, and
+  the largest over the norms (:func:`bn_gaps`).
 
 Read by ``calibrate.py`` only, not compared (sound runs spread too far on
 some seeds): the largest gap of any loss or tensor. A hinge sample at
@@ -103,6 +114,45 @@ def first_forward(losses: Mapping[str, float]) -> Dict[str, float]:
     rounding alone."""
     return {k: v for k, v in losses.items()
             if k.startswith("errD_") and not k.endswith("d_loss_gp")}
+
+
+DAMSM_LOSSES = ("errG/s_loss", "errG/w_loss", "errG/a_loss")
+
+
+def damsm_first_mean(prog: List[Mapping[str, float]],
+                     ref: List[Mapping[str, float]]) -> float:
+    """The mean gap of the first step's DAMSM losses (losses per step, as
+    ``reference.steps.train`` returns them)."""
+    def first(losses):
+        return [{k: v for k, v in losses[0].items() if k in DAMSM_LOSSES}] \
+            if losses else []
+
+    return statistics.fmean(loss_gaps(first(prog), first(ref)).values())
+
+
+BN_EPS = 1e-5
+
+
+def bn_gaps(prog: Mapping[str, tuple], ref: Mapping[str, tuple]
+            ) -> Dict[str, float]:
+    """Per batch norm of ``ref`` ((mean, unbiased variance) per channel,
+    by name), sqrt(mean over channels of ((mean_p - mean_r)^2 + (std_p -
+    std_r)^2) / std_r^2), std = sqrt(variance + ``BN_EPS``); infinite
+    where ``prog`` lacks the norm or reads a value that is not
+    finite."""
+    out = {}
+    for name, (m_r, v_r) in ref.items():
+        if name not in prog:
+            out[name] = math.inf
+            continue
+        m_p, v_p = (t.double() for t in prog[name])
+        m_r, v_r = m_r.double(), v_r.double()
+        s_r = (v_r + BN_EPS).sqrt()
+        s_p = (v_p.clamp_min(0.0) + BN_EPS).sqrt()
+        gap = float(((((m_p - m_r) / s_r).square()
+                      + ((s_p - s_r) / s_r).square()).mean()).sqrt())
+        out[name] = gap if math.isfinite(gap) else math.inf
+    return out
 
 
 def _median(gaps: Mapping[str, float]) -> float:

@@ -132,7 +132,8 @@ def metric_reader(name: str, root: Path = ROOT) -> Callable:
 
 
 def driver(kind: str):
-    """``drivers/<kind>.py``: the generator and runner of a traffic kind."""
+    """``drivers/<kind>.py``: the generator and runner of a traffic kind;
+    its ``CARDS`` is the number of cards a run of it uses."""
     return importlib.import_module(f"benchmark.drivers.{kind}")
 
 
@@ -194,6 +195,9 @@ class Outcome:
     peak_bytes: int
     checks: Dict[str, Dict[str, float]] = field(default_factory=dict)
     trace: Any = None  # trace.Summary of the traced stretch, or None
+    # The forbidden modules the run's other processes held once the
+    # window had closed (a driver that runs several).
+    modules: List[str] = field(default_factory=list)
 
 
 BIG = 1e300  # what the line says for a number that is not finite

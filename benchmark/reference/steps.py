@@ -15,6 +15,12 @@ Adam is written out (betas TRAIN.B1, TRAIN.B2, eps 1e-8, optax's update).
 readings that set its limits: ``half_batch`` computes every loss over
 the first half of the rows only; ``no_magp`` drops the MAGP's gradient
 (its Adam update then takes a zero one).
+
+``exchange`` (None in one process) is what several processes, each
+holding rows of one global batch, exchange to compute the global
+batch's iteration (``reference/eegan_mesh.py``): it averages every
+gradient over them before each Adam update, hands the DAMSM losses the
+whole batch's rows, and averages the reported losses.
 """
 
 from __future__ import annotations
@@ -123,6 +129,7 @@ class Adam:
         self.keep_second = False
         self.second: Optional[Dict[str, torch.Tensor]] = None
         self.second_at: Dict[str, torch.Tensor] = {}
+        self.exchange = None  # reference/eegan_mesh.py's, over processes
 
     def zero_grad(self):
         for p in self.named.values():
@@ -130,6 +137,8 @@ class Adam:
 
     @torch.no_grad()
     def step(self, update=True):
+        if self.exchange is not None:
+            self.exchange.average_(self.named)
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in self.named.items()}
         if self.first is None:
@@ -154,12 +163,14 @@ def named(nets, key):
     return [(f"{key}.{n}", p) for n, p in nets[key].named_parameters()]
 
 
-def optimizers(nets, model) -> Tuple[Adam, List[Adam]]:
+def optimizers(nets, model, exchange=None) -> Tuple[Adam, List[Adam]]:
     tr = model["TRAIN"]
     g = Adam(named(nets, "generator") + named(nets, "attr_enhance"),
              tr["GENERATOR_LR"], tr["B1"], tr["B2"])
     ds = [Adam(named(nets, k), tr["DISCRIMINATOR_LR"], tr["B1"], tr["B2"])
           for k in sorted(k for k in nets if k.startswith("disc"))]
+    for o in (g, *ds):
+        o.exchange = exchange
     return g, ds
 
 
@@ -200,13 +211,15 @@ def _rows(batch, noise, n):
 
 def train_step(nets, model, opts, batch, noise, update=True,
                fault: Optional[str] = None,
-               before_g=None) -> Dict[str, torch.Tensor]:
+               before_g=None, exchange=None) -> Dict[str, torch.Tensor]:
     """One iteration in place; returns the losses by the program's
     metric names. ``batch``: one batch of ``inputs.train_pool``, the
     lengths (``*_lens``) on the host. ``update=False`` computes every
     gradient but moves no parameter (for the operation count).
     ``before_g`` is called between the discriminators' updates and the
-    generator's phase."""
+    generator's phase. With an ``exchange`` the DAMSM losses are the
+    whole batch's and the losses returned are the mean over the
+    processes."""
     tr, sm = model["TRAIN"], model["TRAIN"]["SMOOTH"]
     g_opt, d_opts = opts
     if fault == "half_batch":
@@ -273,11 +286,14 @@ def train_step(nets, model, opts, batch, noise, update=True,
         metrics[f"errG/G_{i}_fake_sent"] = err.detach()
     region, code = nets["image_encoder"](fakes[-1])
     ids = batch["class_ids"]
+    cap_lens = batch["cap_lens"].to(region.device)
+    if exchange is not None:
+        region, code, merged, sent, words, cap_lens, ids = exchange.rows(
+            region, code, merged, sent, words, cap_lens, ids)
     s_loss = sent_loss(code, sent, ids, sm["GAMMA3"]) * sm["LAMBDA"] \
         * tr["SENT_COE"]
     w_loss = contrastive(word_region_log_sims(
-        region, words, batch["cap_lens"].to(region.device), sm["GAMMA1"],
-        sm["GAMMA2"])
+        region, words, cap_lens, sm["GAMMA1"], sm["GAMMA2"])
         * sm["GAMMA3"], ids) * sm["LAMBDA"] * tr["WORDS_COE"]
     a_loss = sent_loss(code, merged, ids, sm["GAMMA3"]) * sm["LAMBDA"] \
         * tr["ATTR_COE"]
@@ -288,10 +304,13 @@ def train_step(nets, model, opts, batch, noise, update=True,
                     "errG/w_loss": w_loss.detach(),
                     "errG/a_loss": a_loss.detach(),
                     "errG/total": total.detach()})
+    if exchange is not None:
+        metrics = exchange.mean(metrics)
     return metrics
 
 
-def train(nets, model, batches, noises, fault: Optional[str] = None):
+def train(nets, model, batches, noises, fault: Optional[str] = None,
+          exchange=None):
     """``len(batches)`` iterations from the networks' weights. Returns
     (losses per step as floats, the first gradient's norm per tensor,
     the change of each trained tensor over the steps, and what the
@@ -299,11 +318,12 @@ def train(nets, model, batches, noises, fault: Optional[str] = None):
     discriminators' parameters as the first step's generator phase saw
     them; ``magp_state``, as each first MAGP saw them; ``magp_grads``,
     the norm of each first MAGP's gradient per tensor; on the host),
-    tensors named ``<network>.<parameter>``."""
+    tensors named ``<network>.<parameter>``. ``batches`` and ``noises``
+    hold this process's rows when there is an ``exchange``."""
     for key in ("text_encoder", "image_encoder"):
         nets[key].eval()
         nets[key].requires_grad_(False)
-    opts = optimizers(nets, model)
+    opts = optimizers(nets, model, exchange)
     g_opt, d_opts = opts
     for o in d_opts:
         o.keep_second = True
@@ -319,7 +339,7 @@ def train(nets, model, batches, noises, fault: Optional[str] = None):
     losses = []
     for batch, noise in zip(batches, noises):
         m = train_step(nets, model, opts, batch, noise, fault=fault,
-                       before_g=keep_d)
+                       before_g=keep_d, exchange=exchange)
         losses.append({k: float(v) for k, v in m.items()})
     grads = {n: float(v) for o in (g_opt, *d_opts)
              for n, v in o.first.items()}
@@ -333,14 +353,15 @@ def train(nets, model, batches, noises, fault: Optional[str] = None):
     return losses, grads, change, seen
 
 
-def first_g_grads(nets, model, batch, noise, d_state) -> Dict[str, float]:
+def first_g_grads(nets, model, batch, noise, d_state, exchange=None
+                  ) -> Dict[str, float]:
     """The generator's first gradient per tensor, with the
     discriminators' parameters set to ``d_state`` (another run's, as its
     first generator phase saw them) for that phase."""
     for key in ("text_encoder", "image_encoder"):
         nets[key].eval()
         nets[key].requires_grad_(False)
-    opts = optimizers(nets, model)
+    opts = optimizers(nets, model, exchange)
     g_opt, d_opts = opts
 
     @torch.no_grad()
@@ -349,14 +370,17 @@ def first_g_grads(nets, model, batch, noise, d_state) -> Dict[str, float]:
             for n, p in o.named.items():
                 p.copy_(d_state[n])
 
-    train_step(nets, model, opts, batch, noise, update=False, before_g=set_d)
+    train_step(nets, model, opts, batch, noise, update=False, before_g=set_d,
+               exchange=exchange)
     return {n: float(v) for n, v in g_opt.first.items()}
 
 
-def magp_grads(nets, model, batch, d_state) -> Dict[str, float]:
+def magp_grads(nets, model, batch, d_state, exchange=None
+               ) -> Dict[str, float]:
     """The norm of the first MAGP's gradient per discriminator tensor,
     with the discriminators' parameters set to ``d_state`` (another
-    run's, as its first MAGP saw them)."""
+    run's, as its first MAGP saw them); with an ``exchange``, of the
+    gradient averaged over the processes."""
     for key in ("text_encoder", "image_encoder"):
         nets[key].eval()
         nets[key].requires_grad_(False)
@@ -373,6 +397,8 @@ def magp_grads(nets, model, batch, d_state) -> Dict[str, float]:
         gp = magp_loss(nets[f"disc{i}"], batch[f"img{size}"], sent,
                        tr["USE_CLASS"] and i == len(sizes) - 1)
         gp.backward()
+        if exchange is not None:
+            exchange.average_(dict(named_d))
         out.update({n: 0.0 if p.grad is None else float(p.grad.norm())
                     for n, p in named_d})
     return out

@@ -13,9 +13,12 @@ last lines of standard error. The traced run writes its Chrome trace to
 ``benchmark_out/<cell>-<seed>.trace.json`` in the checkout.
 
 It refuses to run (exit 2, no result) without as many CUDA devices as
-the cell asks for, and exits 3 with no result when the process holds a
-module of the JAX package or of JAX once the window has closed. Build
-and kernel caches live at fixed paths inside the checkout.
+the cell asks for, or when the driver of the cell's traffic kind
+(``drivers/<kind>.py``, its ``CARDS``) runs another number of cards; and
+exits 3 with no result when the process, or another process of the run,
+holds a module of the JAX package or of JAX once the window has closed.
+A driver of several cards runs this process as its first rank, on card
+0. Build and kernel caches live at fixed paths inside the checkout.
 """
 
 from __future__ import annotations
@@ -73,32 +76,34 @@ def run_cell(args, device, t_start: float, root: Path = ROOT):
     return cell, drv.run(cell, args, device, t_start, log)
 
 
-def main(argv=None) -> int:
-    set_caches()
+def main(argv=None, root: Path = ROOT) -> int:
+    set_caches(root)
     sys.path.insert(0, str(ROOT))
     args = parse_args(argv)
     import torch
 
     from benchmark import harness
 
-    cell = harness.find_cell(args.workload)
+    cell = harness.find_cell(args.workload, root)
     if not torch.cuda.is_available() or \
             torch.cuda.device_count() < cell.chips:
         log(f"{cell.name} needs {cell.chips} CUDA device(s); "
             f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}"
             " visible")
         return 2
-    if cell.chips != 1:
-        log(f"{cell.name}: cells on {cell.chips} cards are not run by this "
-            "harness yet")
+    kind = cell.traffic["kind"]
+    cards = harness.driver(kind).CARDS
+    if cards != cell.chips:
+        log(f"{cell.name} asks for {cell.chips} card(s); its traffic kind "
+            f"{kind!r} runs {cards}")
         return 2
     torch.set_num_threads(2)
     torch.cuda.set_device(0)
     torch.cuda.init()
     card = harness.power_limit()
     log(f"card: {card}")
-    cell, out = run_cell(args, torch.device("cuda", 0), T_START)
-    found = harness.forbidden_modules()
+    cell, out = run_cell(args, torch.device("cuda", 0), T_START, root)
+    found = sorted(set(harness.forbidden_modules()) | set(out.modules))
     if found:
         log(f"the process holds {found}: the benchmark runs the port alone")
         return 3

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import functools
 import json
+import re
 import sys
 from dataclasses import dataclass
 from pathlib import Path
@@ -47,6 +48,7 @@ ACTIVITIES = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCHES = ("cuda_runtime", "cuda_driver")
 OUTSIDE, UNATTRIBUTED = -1, -2  # an activity's span when it has none
 CHUNK = 8192  # activities tested against the spans at once
+NCCL = re.compile(r"(^|\W)nccl\w*Kernel")  # an NCCL kernel's symbol
 
 
 @dataclass
@@ -133,6 +135,27 @@ def innermost(t: np.ndarray, starts: np.ndarray, ends: np.ndarray
 
 def union_s(intervals: np.ndarray) -> float:
     return float(sum(e - s for s, e in merge(map(tuple, intervals))))
+
+
+def overlap_s(a: np.ndarray, b: np.ndarray) -> float:
+    """Seconds that the union of intervals ``a`` and the union of ``b``
+    share."""
+    ua, ub = merge(map(tuple, a)), merge(map(tuple, b))
+    out, j = 0.0, 0
+    for s, e in ua:
+        while j < len(ub) and ub[j][1] <= s:
+            j += 1
+        k = j
+        while k < len(ub) and ub[k][0] < e:
+            out += min(e, ub[k][1]) - max(s, ub[k][0])
+            k += 1
+    return out
+
+
+def nccl(s: "Spans") -> np.ndarray:
+    """Which activities are NCCL kernels, by symbol."""
+    return np.array([NCCL.search(n) is not None for n in s.labels],
+                    dtype=bool)
 
 
 def from_events(events: Sequence[Dict]) -> Optional["Spans"]:

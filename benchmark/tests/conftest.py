@@ -18,6 +18,8 @@ if str(ROOT) not in sys.path:
 TINY_TRAFFIC = {
     "train_b32_k8": dict(batch_per_card=4, steps_per_call=4, pool_batches=4),
     "train_b24_k4": dict(batch_per_card=4, steps_per_call=4, pool_batches=8),
+    "train_mesh_b32x4_k8": dict(batch_per_card=2, steps_per_call=4,
+                                pool_batches=4),
     "generate_b128": dict(batch=4, pool=32, warmup=1, kept=2,
                           traced_requests=1),
 }

@@ -1,7 +1,7 @@
 """``d_graph_share.train`` on made-up Chrome traces: 100 when every D
 unit (hinge, MAGP and their two updates a scale) replays inside a
-``train.d_graph`` span, the share that did when only some do, nothing
-without the span."""
+``train.d_graph`` span, the share that did when only some do, 0 when
+none does (an eager D phase), nothing without the D phase's spans."""
 
 import pytest
 
@@ -40,6 +40,7 @@ ACTS = [(12, 12, 30, 7, MAIN), (40, 40, 60, 7, MAIN)]
     ((0, 1, 2, 3), 100.0),
     ((0, 2), 50.0),
     ((1,), 25.0),
+    ((), 0.0),
 ])
 def test_share_of_the_units_that_replayed(tmp_path, monkeypatch, graphed,
                                           share):
@@ -48,10 +49,9 @@ def test_share_of_the_units_that_replayed(tmp_path, monkeypatch, graphed,
     assert read(METRIC, train_obs(cell)) == pytest.approx(share)
 
 
-@pytest.mark.parametrize("trace", ["no graph span", "no spans", "missing",
-                                   "generate"])
+@pytest.mark.parametrize("trace", ["no spans", "missing", "generate"])
 def test_nothing_to_read(tmp_path, monkeypatch, trace):
-    host = d_phase(3, () if trace == "no graph span" else (0, 1, 2, 3))
+    host = d_phase(3, (0, 1, 2, 3))
     cell = write_run(tmp_path, monkeypatch, "bird-train-b32",
                      None if trace == "missing" else
                      chrome(host, ACTS, with_spans=trace != "no spans"))

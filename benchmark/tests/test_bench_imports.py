@@ -83,8 +83,10 @@ def test_top_level_names_are_compared_whole(monkeypatch):
 
 def test_the_port_and_the_benchmark_load_no_jax():
     code = ("import sys; import benchmark.run, benchmark.drivers.train, "
-            "benchmark.drivers.generate, benchmark.architectures.eegan, "
-            "eegan_tpu_torch.training.steps, "
+            "benchmark.drivers.generate, benchmark.drivers.train_mesh, "
+            "benchmark.architectures.eegan, benchmark.reference.eegan_mesh, "
+            "benchmark.calibrate, eegan_tpu_torch.training.steps, "
+            "eegan_tpu_torch.parallel.mesh, "
             "eegan_tpu_torch.models.factory; from benchmark import harness; "
             "print(harness.forbidden_modules())")
     out = subprocess.run([sys.executable, "-c", code], cwd=harness.ROOT,

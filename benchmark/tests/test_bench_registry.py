@@ -109,6 +109,7 @@ def test_every_entry_has_its_files():
         kind = cell.traffic["kind"]
         assert (harness.HERE / "drivers" / f"{kind}.py").is_file(), kind
         assert callable(harness.driver(kind).run), kind
+        assert harness.driver(kind).CARDS == cell.chips, (kind, cell.chips)
         assert cell.arch.__file__ == str(
             harness.HERE / "architectures"
             / f"{cell.config['architecture']}.py")
